@@ -1,0 +1,104 @@
+"""Build and load the hand-written CUDA kernels under ``maggy_tpu_torch/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with :mod:`ctypes`. Nothing
+includes PyTorch's headers, so a build takes seconds rather than minutes.
+
+The build runs at first use, never at import: ``import maggy_tpu_torch``
+works on a machine with no CUDA toolkit. Outputs go to
+``maggy_tpu_torch/_build/<hash>/``, where the hash covers every source and
+the compiler flags, so an edited kernel is rebuilt and a stale library is
+never loaded. All sources compile in parallel, one ``nvcc`` each.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# filled by build(): wall seconds and each kernel's ptxas report
+build_info: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((Path(home) / "bin" / "nvcc") if home else None,
+                 Path("/usr/local/cuda/bin/nvcc")):
+        if cand is not None and cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME); the flash kernels are built "
+            "from source at first use"
+        )
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Dict[str, Path]:
+    """Compile every kernel library that is not built yet; returns their
+    paths. Raises with the compiler's output when a build fails."""
+    out_dir = BUILD_ROOT / _digest()
+    paths = {name: out_dir / f"lib{name}.so" for name in KERNELS}
+    missing = [n for n, p in paths.items() if not p.exists()]
+    if not missing:
+        return paths
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in missing:
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failures = []
+    ptxas = {}
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        ptxas[name] = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        if proc.returncode != 0:
+            failures.append(f"--- {name} (rc {proc.returncode})\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, paths[name])  # atomic: readers never see a partial file
+    build_info.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build()[name]))
+            _libs[name] = lib
+        return lib

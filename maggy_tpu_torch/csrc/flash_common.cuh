@@ -6,10 +6,17 @@
 // sit in shared memory row-major with a row pitch of D + 8 elements, so the
 // 32-bit fragment loads of one warp fall in 32 different banks.
 //
-// Layouts: q/o/do are [B, Sq, H, D], k/v [B, Sk, Kh, D], read through their
+// Layouts: q/o/do are [B, C, H, D], k/v [B, C, Kh, D], read through their
 // strides (the last dimension contiguous, the others multiples of 8 elements
-// so 16-byte loads stay aligned). The LSE is fp32 [B, H, Sq]; segment ids are
-// int32 [B, S] and are shared by q and k (self-attention).
+// so 16-byte loads stay aligned). The LSE and the running max and sum are
+// fp32 [B, H, C] read through RowStrides. Segment ids are int32 [B, C], one
+// array for the q chunk and one for the KV chunk (the same array twice for
+// self-attention over the whole sequence).
+//
+// The three kernels (ring_fwd.cu, ring_bwd_dq.cu, ring_bwd_dkv.cu) compute
+// one ring step each; flash attention over a whole sequence is the one-step
+// ring (first and last step at once, diagonal = causal), so each tile loop
+// exists once.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -118,13 +125,27 @@ struct Strides {
   long long b, s, h;  // batch, sequence and head strides in elements
 };
 
-// Operands of the two backward kernels (each uses the outputs it writes).
-struct BwdArgs {
-  const uint16_t* q; const uint16_t* k; const uint16_t* v; const uint16_t* o; const uint16_t* dout;
-  const float* lse; const int* segs;
-  uint16_t* dq; uint16_t* dk; uint16_t* dv;
-  int H, KH, Sq, Sk, causal; float scale;
-  Strides qs, ks, vs, os, dos, dqs, dks, dvs;
+// A [B, H, rows] fp32 array with unit row stride (LSE, running max and sum).
+struct RowStrides {
+  long long b, h;
 };
+
+// Two neighbouring values of an output row. An fp32 accumulator is stored on
+// its chunk's first ring step and added to afterwards; an output in the
+// element type T (one-step flash attention) is stored.
+template <typename T>
+__device__ __forceinline__ void put2(float* p, float x, float y, bool first) {
+  float2* q = reinterpret_cast<float2*>(p);
+  if (first) {
+    *q = make_float2(x, y);
+  } else {
+    const float2 old = *q;
+    *q = make_float2(old.x + x, old.y + y);
+  }
+}
+template <typename T>
+__device__ __forceinline__ void put2(uint16_t* p, float x, float y, bool) {
+  *reinterpret_cast<uint32_t*>(p) = pack<T>(x, y);
+}
 
 }  // namespace mt

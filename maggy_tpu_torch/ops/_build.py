@@ -9,6 +9,11 @@ works on a machine with no CUDA toolkit. Outputs go to
 ``maggy_tpu_torch/_build/<hash>/``, where the hash covers every source and
 the compiler flags, so an edited kernel is rebuilt and a stale library is
 never loaded. All sources compile in parallel, one ``nvcc`` each.
+
+Three kernels serve both attention paths: ``ring_fwd``, ``ring_bwd_dq`` and
+``ring_bwd_dkv`` compute one step of ring attention, and flash attention
+over a whole sequence is the one-step ring (:mod:`maggy_tpu_torch.ops.flash`).
+:func:`kernel` binds each library's C entry point ``mt_<name>``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,14 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+KERNELS = ("ring_fwd", "ring_bwd_dq", "ring_bwd_dkv")
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# argument types of each mt_<name>, as declared in csrc/<name>.cu
+SIGNATURES = {
+    "ring_fwd": [_P] * 10 + [_I] * 8 + [_F] + [_L] * 19 + [_P],
+    "ring_bwd_dq": [_P] * 9 + [_I] * 8 + [_F] + [_L] * 22 + [_P],
+    "ring_bwd_dkv": [_P] * 10 + [_I] * 8 + [_F] + [_L] * 25 + [_P],
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,6 +45,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, object] = {}
 # filled by build(): wall seconds and each kernel's ptxas report
 build_info: Dict[str, object] = {}
 
@@ -46,7 +59,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            "nvcc not found (set CUDA_HOME); the flash kernels are built "
+            "nvcc not found (set CUDA_HOME); the attention kernels are built "
             "from source at first use"
         )
     return found
@@ -102,3 +115,16 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()[name]))
             _libs[name] = lib
         return lib
+
+
+def kernel(name: str):
+    """The C entry point ``mt_<name>`` of kernel ``name``, typed, its library
+    built and loaded on first use. It returns ``cudaGetLastError()`` after
+    the launch, or -1 for a head_dim the kernel does not take."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(library(name), "mt_" + name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn

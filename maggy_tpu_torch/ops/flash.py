@@ -1,12 +1,17 @@
 """Flash attention, forward and backward, for training.
 
-Counterpart of :mod:`maggy_tpu.ops.flash`. Three hand-written CUDA kernels
-(``maggy_tpu_torch/csrc/``) replace the three Pallas kernels there:
+Counterpart of :mod:`maggy_tpu.ops.flash`. Three wrappers launch the
+hand-written CUDA kernels (``maggy_tpu_torch/csrc/``) that replace the three
+Pallas kernels there. Flash attention over a whole sequence is one step of
+ring attention (first and last step at once, the causal diagonal), so the
+wrappers launch the ring-step kernels of :mod:`maggy_tpu_torch.ops.ring_flash`
+with their outputs written in bf16 and no state carried:
 
-* ``flash_fwd`` replaces ``_fwd_kernel``: O and the per-row LSE;
-* ``flash_bwd_dq`` replaces ``_dq_kernel``: dQ;
-* ``flash_bwd_dkv`` replaces ``_dkv_kernel`` and the GQA group sum of
-  ``_flash_core``'s backward: dK and dV per KV head.
+* ``flash_fwd`` (``csrc/ring_fwd.cu``) replaces ``_fwd_kernel``: O and the
+  per-row LSE;
+* ``flash_bwd_dq`` (``csrc/ring_bwd_dq.cu``) replaces ``_dq_kernel``: dQ;
+* ``flash_bwd_dkv`` (``csrc/ring_bwd_dkv.cu``) replaces ``_dkv_kernel`` and
+  the GQA group sum of ``_flash_core``'s backward: dK and dV per KV head.
 
 Each kernel has a plain PyTorch version beside it (``flash_fwd_reference``,
 ``flash_dq_reference``, ``flash_dkv_reference``) computing the same function
@@ -15,19 +20,20 @@ from O and dO, as ``_recompute_p_ds`` does. A tensor on the CPU goes to the
 plain version; a CUDA tensor launches the kernel or raises. Nothing falls
 back from one to the other.
 
-Layouts are the JAX package's: q/o ``[B, S, H, D]``, k/v ``[B, S, Kh, D]``,
-LSE ``[B, H, S]`` fp32, segment ids ``[B, S]``. The kernels read q/k/v through
+Layouts are the JAX package's: q/o ``[B, S, H, D]``, k/v ``[B, S, Kh, D]``
+(self-attention: q and k/v have the same length), LSE ``[B, H, S]`` fp32,
+segment ids ``[B, S]``. The kernels read q/k/v through
 their strides and mask ragged sequence edges themselves, so there is no
 alignment fallback.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
+from maggy_tpu_torch.ops import _build
 from maggy_tpu_torch.ops.attention import NEG_INF, repeat_kv
 
 # Kernel launches since the last reset_launches(); each wrapper adds one
@@ -123,28 +129,6 @@ def flash_dkv_reference(q, k, v, o, do, lse, *, causal=True, segment_ids=None):
 
 # ------------------------------------------------------------------ kernels
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-_SIGS = {
-    "flash_fwd": [_P] * 6 + [_I] * 7 + [ctypes.c_float] + [_L] * 12 + [_P],
-    "flash_bwd_dq": [_P] * 8 + [_I] * 7 + [ctypes.c_float] + [_L] * 18 + [_P],
-    "flash_bwd_dkv": [_P] * 9 + [_I] * 7 + [ctypes.c_float] + [_L] * 21 + [_P],
-}
-_fns = {}
-
-
-def _kernel(name):
-    fn = _fns.get(name)
-    if fn is None:
-        from maggy_tpu_torch.ops import _build
-
-        fn = getattr(_build.library(name), "mt_" + name)
-        fn.argtypes = _SIGS[name]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
-
 
 def _strided_ok(t: torch.Tensor) -> bool:
     # 16-byte vector loads: last dim contiguous, other strides whole vectors
@@ -175,12 +159,10 @@ def _check(q, k, v, segment_ids):
     b, sq, h, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
-    if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or h % k.shape[2]:
+    if k.shape[0] != b or k.shape[1] != sq or k.shape[3] != d or v.shape != k.shape or h % k.shape[2]:
         raise ValueError(f"flash kernel: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if segment_ids is not None and (
-        tuple(segment_ids.shape) != (b, sq) or k.shape[1] != sq
-    ):
-        raise ValueError("segment_ids must be [B, S] with Sq == Sk")
+    if segment_ids is not None and tuple(segment_ids.shape) != (b, sq):
+        raise ValueError("segment_ids must be [B, S]")
 
 
 def _segs(segment_ids):
@@ -196,43 +178,60 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
 
 
+def _segs_args(q_segs, k_segs):
+    """The kernels' segment-id pointers and batch strides, for the q and the
+    KV sequence (self-attention passes one array twice)."""
+    if q_segs is None:
+        return (None, None), (0, 0)
+    return (q_segs.data_ptr(), k_segs.data_ptr()), (q_segs.stride(0), k_segs.stride(0))
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def flash_fwd(q, k, v, *, causal=True, segment_ids=None):
     """Forward kernel: (O [B,S,H,D], LSE [B,H,S] fp32) for CUDA q/k/v."""
     _check(q, k, v, segment_ids)
     q, k, v = _operand(q), _operand(k), _operand(v)
     segs = _segs(segment_ids)
-    b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
+    b, s, h, d = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    rc = _kernel("flash_fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        segs.data_ptr() if segs is not None else None, o.data_ptr(), lse.data_ptr(),
-        b, h, kh, sq, sk, d, int(causal), 1.0 / d**0.5,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-        torch.cuda.current_stream(q.device).cuda_stream,
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    (qs, ks), (qs_b, ks_b) = _segs_args(segs, segs)
+    # one step that is first and last: no running state (acc, m, l) in memory
+    rc = _build.kernel("ring_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qs, ks,
+        None, None, None, o.data_ptr(), lse.data_ptr(),
+        b, h, k.shape[2], s, d, int(causal), 1, 1, 1.0 / d**0.5,
+        *_strides(q), *_strides(k), *_strides(v), 0, 0, 0, *_strides(o),
+        lse.stride(0), lse.stride(1), qs_b, ks_b,
+        _stream(q),
     )
     _raise_on(rc, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, o, do, lse, *, causal=True, segment_ids=None):
-    """dQ kernel: dQ [B,S,H,D] for CUDA tensors."""
+def _bwd_operands(q, k, v, o, do, lse, segment_ids):
     _check(q, k, v, segment_ids)
     q, k, v, o, do = (_operand(t) for t in (q, k, v, o, do))
-    lse = lse.float().contiguous()
-    segs = _segs(segment_ids)
-    b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
+    return q, k, v, o, do, lse.float().contiguous(), _segs(segment_ids)
+
+
+def flash_bwd_dq(q, k, v, o, do, lse, *, causal=True, segment_ids=None):
+    """dQ kernel: dQ [B,S,H,D] for CUDA tensors."""
+    q, k, v, o, do, lse, segs = _bwd_operands(q, k, v, o, do, lse, segment_ids)
+    b, s, h, d = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    rc = _kernel("flash_bwd_dq")(
+    (qs, ks), (qs_b, ks_b) = _segs_args(segs, segs)
+    rc = _build.kernel("ring_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), segs.data_ptr() if segs is not None else None, dq.data_ptr(),
-        b, h, kh, sq, sk, d, int(causal), 1.0 / d**0.5,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(o), *_strides(do),
-        *_strides(dq),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        lse.data_ptr(), qs, ks, dq.data_ptr(),
+        b, h, k.shape[2], s, d, int(causal), 1, 0, 1.0 / d**0.5,  # first, stored in bf16
+        *_strides(q), *_strides(k), *_strides(v), *_strides(o), *_strides(do), *_strides(dq),
+        lse.stride(0), lse.stride(1), qs_b, ks_b,
+        _stream(q),
     )
     _raise_on(rc, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
@@ -241,22 +240,18 @@ def flash_bwd_dq(q, k, v, o, do, lse, *, causal=True, segment_ids=None):
 
 def flash_bwd_dkv(q, k, v, o, do, lse, *, causal=True, segment_ids=None):
     """dK/dV kernel: (dK, dV) [B,S,Kh,D] per KV head for CUDA tensors."""
-    _check(q, k, v, segment_ids)
-    q, k, v, o, do = (_operand(t) for t in (q, k, v, o, do))
-    lse = lse.float().contiguous()
-    segs = _segs(segment_ids)
-    b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
+    q, k, v, o, do, lse, segs = _bwd_operands(q, k, v, o, do, lse, segment_ids)
+    b, s, h, d = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    rc = _kernel("flash_bwd_dkv")(
+    (qs, ks), (qs_b, ks_b) = _segs_args(segs, segs)
+    rc = _build.kernel("ring_bwd_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), segs.data_ptr() if segs is not None else None,
-        dk.data_ptr(), dv.data_ptr(),
-        b, h, kh, sq, sk, d, int(causal), 1.0 / d**0.5,
+        lse.data_ptr(), qs, ks, dk.data_ptr(), dv.data_ptr(),
+        b, h, k.shape[2], s, d, int(causal), 1, 0, 1.0 / d**0.5,  # first, stored in bf16
         *_strides(q), *_strides(k), *_strides(v), *_strides(o), *_strides(do),
-        *_strides(dk), *_strides(dv),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *_strides(dk), *_strides(dv), lse.stride(0), lse.stride(1), qs_b, ks_b,
+        _stream(q),
     )
     _raise_on(rc, "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1

@@ -34,7 +34,8 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
         "import sys\n"
         "import maggy_tpu_torch, maggy_tpu_torch.ops, maggy_tpu_torch.ops.flash\n"
         "import maggy_tpu_torch.models, maggy_tpu_torch.train, maggy_tpu_torch.convert\n"
-        "import maggy_tpu_torch.util\n"
+        "import maggy_tpu_torch.util, maggy_tpu_torch.ops.ring_flash\n"
+        "import maggy_tpu_torch.parallel, maggy_tpu_torch.parallel.spec\n"
         "from maggy_tpu_torch.ops import _build\n"
         "print(sorted(sys.modules))\n"
         "print(len(_build._libs), 'triton' in sys.modules)\n"

@@ -7,13 +7,16 @@
 Phases, each printing one line:
 
 1. device   the card, its power limit, and the build of the CUDA kernels
-            from ``maggy_tpu_torch/csrc`` (nvcc, sm_90a). Three kernels serve
+            from ``maggy_tpu_torch/csrc`` (nvcc, sm_90a) with each source's
+            ptxas registers and spill bytes; it fails if the Hopper kernels
+            (``ring_fwd.cu``, ``ring_bwd_dkv.cu``) spill. Three kernels serve
             both paths: flash attention is the one-step ring.
 2. kernels  each flash kernel (forward, dQ, dK/dV) against its plain PyTorch
             version, run in fp32 from the same bf16 inputs, on a causal, a
             packed (3 segments per row) and a ragged (S=1000) case at
             B=2, S=2048, H=32, Kh=8, D=128. Times by CUDA events (median of
-            10), beside the bound and PyTorch's own SDPA as a yardstick.
+            10), beside the bound (and the share of it reached) and
+            PyTorch's own SDPA as a yardstick.
 3. model    ``Decoder(llama3_8b(n_layers=4))`` through the kernels: each
             layer's attention output against the plain version on the same
             activations, and the logits against the same weights with
@@ -120,6 +123,8 @@ TPU_KERNELS = {
 }
 # flash attention is the one-step ring: each flash wrapper launches a ring kernel
 SOURCES = {name: f"maggy_tpu_torch/csrc/{name.replace('flash', 'ring')}.cu" for name in TPU_KERNELS}
+# the sources redesigned for Hopper (wgmma from a TMA-fed ring): they must not spill
+NO_SPILL = ("ring_fwd", "ring_bwd_dkv")
 
 
 def card_line() -> str:
@@ -161,6 +166,26 @@ def time_sdpa_bwd(torch, q, k, v, do, is_causal: bool) -> float:
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_of(source: str) -> dict:
+    """The largest register count and the total spill bytes ptxas reported
+    for the kernels of ``csrc/<source>.cu`` (every head_dim and output type),
+    from the build's own log."""
+    from maggy_tpu_torch.ops import _build
+
+    kernels = _build.ptxas_report()[source]["kernels"].values()
+    return dict(registers=max(k["registers"] for k in kernels), spill_bytes=sum(k["spill_bytes"] for k in kernels))
+
+
+def kernel_row(name, ms, plain_ms, work, max_err, library_ms) -> dict:
+    """One kernel's line in ``*.times``: its time beside its bound, the share
+    of the bound it reaches, and its ptxas registers and spills."""
+    b_ms, b_by = bound(*work)
+    return dict(
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        tflops=work[0] / ms / 1e9, share_of_bound=b_ms / ms, ptxas=ptxas_of(name.replace("flash", "ring")),
+    )
 
 
 def rel_l2(a, b) -> float:
@@ -280,15 +305,10 @@ def phase_kernels(torch):
             max_err = max(max(r["err"]["dk_max_abs"], r["err"]["dv_max_abs"]) for r in results.values())
         else:
             max_err = max(r["err"][err_key[name]] for r in results.values())
-        b_ms, b_by = bound(*work[name])
-        rows[name] = dict(
-            max_abs_err=max_err, ms=ms[name], plain_ms=plain_ms[name],
-            bound_ms=b_ms, bound_by=b_by,
-            # one SDPA backward computes dQ, dK and dV together: it stands
-            # beside each of the two backward kernels
-            library_ms=sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd_ms,
-            tflops=work[name][0] / ms[name] / 1e9,
-        )
+        # one SDPA backward computes dQ, dK and dV together: it stands beside
+        # each of the two backward kernels
+        rows[name] = kernel_row(name, ms[name], plain_ms[name], work[name], max_err,
+                                sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd_ms)
     emit(
         "kernels.times", shape=dict(B=B, S=S, H=H, KH=KH, D=D, causal=True),
         sdpa_fwd_ms=sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms, sdpa_bwd_ms=sdpa_bwd_ms,
@@ -594,19 +614,14 @@ def phase_ring_kernels(torch):
         "ring_bwd_dkv": max(v for r in cases.values() for n, v in r["err"].items()
                             if n[:3] in ("dk_", "dv_") and n.endswith("max_abs")),
     }
-    rows = {}
-    for name in ms:
-        b_ms, b_by = bound(*work[name])
-        rows[name] = dict(
-            max_abs_err=max_err[name], ms=ms[name], plain_ms=plain_ms[name], bound_ms=b_ms, bound_by=b_by,
-            # one SDPA backward computes dQ, dK and dV: it stands beside both backward kernels
-            library_ms=sdpa_fwd_ms if name == "ring_fwd" else sdpa_bwd_ms,
-            tflops=work[name][0] / ms[name] / 1e9,
-        )
+    # one SDPA backward computes dQ, dK and dV: it stands beside both backward kernels
+    rows = {name: kernel_row(name, ms[name], plain_ms[name], work[name], max_err[name],
+                             sdpa_fwd_ms if name == "ring_fwd" else sdpa_bwd_ms) for name in ms}
     emit(
         "ring.kernels.times", shape=dict(B=RING_B, C=RING_C, H=H, KH=KH, D=D, step="past"),
         sdpa_fwd_ms=sdpa_fwd_ms, sdpa_bwd_ms=sdpa_bwd_ms,
-        diagonal_fwd=dict(ms=diagonal_fwd_ms, bound_ms=diagonal_bound, sdpa_causal_fwd_ms=sdpa_diagonal_fwd_ms),
+        diagonal_fwd=dict(ms=diagonal_fwd_ms, bound_ms=diagonal_bound, share_of_bound=diagonal_bound / diagonal_fwd_ms,
+                          sdpa_causal_fwd_ms=sdpa_diagonal_fwd_ms),
         **rows,
     )
     del cases, acc, m, l, o_buf, lse_buf, dq, dk, dv, acc_r, m_r, l_r, dq_r, dk_r, dv_r, qg, kg, vg
@@ -1009,11 +1024,16 @@ def main(argv=None) -> int:
     card = card_line()
     t0 = time.perf_counter()
     _build.build()
+    ptxas = {src: ptxas_of(src) for src in _build.KERNELS}
+    spills = {src: p["spill_bytes"] for src, p in ptxas.items() if src in NO_SPILL and p["spill_bytes"]}
     emit(
-        "device", name=torch.cuda.get_device_name(0), card=card,
+        "device", ok=not spills, name=torch.cuda.get_device_name(0), card=card,
         torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=time.perf_counter() - t0, ptxas=_build.build_info.get("ptxas"),
+        build_s=time.perf_counter() - t0, ptxas=ptxas,
+        ptxas_notes={src: r["notes"] for src, r in _build.ptxas_report().items() if r["notes"]},
     )
+    if spills:
+        raise SystemExit(f"the Hopper kernels spill registers (bytes): {spills}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1028,7 +1048,8 @@ def main(argv=None) -> int:
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=TPU_KERNELS[name],
-             launches=launches[name], **{k: v for k, v in rows[name].items() if k != "tflops"})
+             launches=launches[name],
+             **{k: v for k, v in rows[name].items() if k not in ("tflops", "share_of_bound", "ptxas")})
         for name in SOURCES
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

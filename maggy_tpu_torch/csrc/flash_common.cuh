@@ -1,52 +1,24 @@
-// Shared pieces of the flash-attention kernels for Hopper (sm_90a).
+// The mma.sync pieces of the dQ kernel (ring_bwd_dq.cu), Ampere's design
+// carried over in the port's first slice; the forward and dK/dV kernels use
+// Hopper's wgmma and TMA instead (hopper.cuh).
 //
 // Tiles: every CTA owns a 64-row tile and streams 64-row tiles of the other
 // operand through shared memory. Four warps each own 16 of the CTA's rows and
 // multiply with mma.sync m16n8k16 (bf16 in, fp32 accumulate). Tiles
 // sit in shared memory row-major with a row pitch of D + 8 elements, so the
 // 32-bit fragment loads of one warp fall in 32 different banks.
-//
-// Layouts: q/o/do are [B, C, H, D], k/v [B, C, Kh, D], read through their
-// strides (the last dimension contiguous, the others multiples of 8 elements
-// so 16-byte loads stay aligned). The LSE and the running max and sum are
-// fp32 [B, H, C] read through RowStrides. Segment ids are int32 [B, C], one
-// array for the q chunk and one for the KV chunk (the same array twice for
-// self-attention over the whole sequence).
-//
-// The three kernels (ring_fwd.cu, ring_bwd_dq.cu, ring_bwd_dkv.cu) compute
-// one ring step each; flash attention over a whole sequence is the one-step
-// ring (first and last step at once, diagonal = causal), so each tile loop
-// exists once.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attn_common.cuh"
 
 namespace mt {
 
 constexpr int BM = 64;    // rows of the CTA's own tile
 constexpr int BN = 64;    // rows of each streamed tile
 constexpr int NT = 128;   // threads: 4 warps x 16 rows
-constexpr float NEG_INF = -1e30f;  // the JAX package's masking value
 
 __host__ __device__ constexpr int pitch(int d) { return d + 8; }
 __host__ __device__ constexpr int tile_elems(int d) { return BM * pitch(d); }
-
-// ---- element conversion ---------------------------------------------------
-// The element type T is a template parameter of every kernel; bf16 is the one
-// the model computes in and the one specialised here.
-
-template <typename T> __device__ __forceinline__ float to_f(uint16_t x);
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
-
-template <typename T> __device__ __forceinline__ uint32_t pack(float lo, float hi);
-template <> __device__ __forceinline__ uint32_t pack<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // ---- tensor-core product: c[16x8] += a[16x16] * b[16x8] -------------------
 
@@ -119,33 +91,6 @@ __device__ __forceinline__ void row_dot(float* delta, const uint16_t* sdo, const
   for (int c = c0; c < c0 + D / 2; ++c) acc += to_f<T>(sdo[r * pitch(D) + c]) * to_f<T>(so[r * pitch(D) + c]);
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
   if ((tid & 1) == 0) delta[r] = acc;
-}
-
-struct Strides {
-  long long b, s, h;  // batch, sequence and head strides in elements
-};
-
-// A [B, H, rows] fp32 array with unit row stride (LSE, running max and sum).
-struct RowStrides {
-  long long b, h;
-};
-
-// Two neighbouring values of an output row. An fp32 accumulator is stored on
-// its chunk's first ring step and added to afterwards; an output in the
-// element type T (one-step flash attention) is stored.
-template <typename T>
-__device__ __forceinline__ void put2(float* p, float x, float y, bool first) {
-  float2* q = reinterpret_cast<float2*>(p);
-  if (first) {
-    *q = make_float2(x, y);
-  } else {
-    const float2 old = *q;
-    *q = make_float2(old.x + x, old.y + y);
-  }
-}
-template <typename T>
-__device__ __forceinline__ void put2(uint16_t* p, float x, float y, bool) {
-  *reinterpret_cast<uint32_t*>(p) = pack<T>(x, y);
 }
 
 }  // namespace mt

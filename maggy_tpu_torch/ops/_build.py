@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,7 +37,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 SIGNATURES = {
     "ring_fwd": [_P] * 10 + [_I] * 8 + [_F] + [_L] * 19 + [_P],
     "ring_bwd_dq": [_P] * 9 + [_I] * 8 + [_F] + [_L] * 22 + [_P],
-    "ring_bwd_dkv": [_P] * 10 + [_I] * 8 + [_F] + [_L] * 25 + [_P],
+    "ring_bwd_dkv": [_P] * 11 + [_I] * 8 + [_F] + [_L] * 25 + [_P],
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,7 +47,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, object] = {}
-# filled by build(): wall seconds and each kernel's ptxas report
+# filled by build(): wall seconds of the compiles it ran, and ptxas_report()
 build_info: Dict[str, object] = {}
 
 
@@ -92,19 +93,48 @@ def build() -> Dict[str, Path]:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
     failures = []
-    ptxas = {}
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
-        ptxas[name] = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         if proc.returncode != 0:
             failures.append(f"--- {name} (rc {proc.returncode})\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            (out_dir / f"{name}.ptxas.log").write_text(log)
             os.replace(tmp, paths[name])  # atomic: readers never see a partial file
-    build_info.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
+    build_info.update(seconds=time.perf_counter() - t0, ptxas=ptxas_report())
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return paths
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, object]]:
+    """Each kernel's registers and spill bytes from ``nvcc -Xptxas -v``
+    output, by mangled name, and ptxas's performance notes (such as wgmma
+    serialised) under ``"notes"``."""
+    kernels: Dict[str, Dict[str, object]] = {}
+    notes = []
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            current = kernels.setdefault(m.group(1), {"registers": None, "spill_bytes": 0})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+        if "Performance Loss" in line or "warning" in line.lower():
+            notes.append(line.strip())
+    return {"kernels": kernels, "notes": notes}
+
+
+def ptxas_report() -> Dict[str, Dict[str, object]]:
+    """:func:`parse_ptxas` of each built kernel library, by source name."""
+    out_dir = BUILD_ROOT / _digest()
+    return {name: parse_ptxas((out_dir / f"{name}.ptxas.log").read_text())
+            for name in KERNELS if (out_dir / f"{name}.ptxas.log").exists()}
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -174,6 +174,8 @@ def _segs(segment_ids):
 def _raise_on(rc: int, name: str) -> None:
     if rc == -1:
         raise ValueError(f"{name}: head_dim not supported by the kernel")
+    if rc in (-2, -3):
+        raise RuntimeError(f"{name}: the driver cannot make a TMA tensor map for these operands (code {rc})")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
 
@@ -244,10 +246,11 @@ def flash_bwd_dkv(q, k, v, o, do, lse, *, causal=True, segment_ids=None):
     b, s, h, d = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)  # rowsum(dO * O), filled by the kernel
     (qs, ks), (qs_b, ks_b) = _segs_args(segs, segs)
     rc = _build.kernel("ring_bwd_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), qs, ks, dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), qs, ks, dk.data_ptr(), dv.data_ptr(),
         b, h, k.shape[2], s, d, int(causal), 1, 0, 1.0 / d**0.5,  # first, stored in bf16
         *_strides(q), *_strides(k), *_strides(v), *_strides(o), *_strides(do),
         *_strides(dk), *_strides(dv), lse.stride(0), lse.stride(1), qs_b, ks_b,

@@ -238,10 +238,11 @@ def ring_bwd_dkv(q, k, v, o, do, lse, dk, dv, *, diagonal, first, q_segs=None, k
     _check("ring_bwd_dkv", q, k, v, bf16=(o, do), fp32=(), stats=(lse,), q_segs=q_segs, k_segs=k_segs)
     _check("ring_bwd_dkv", k, k, v, fp32=(dk, dv))  # accumulators have k's shape
     b, c, h, d = q.shape
+    delta = torch.empty((b, h, c), dtype=torch.float32, device=q.device)  # rowsum(dO * O), filled by the kernel
     (qs, ks), (qs_b, ks_b) = _segs_args(q_segs, k_segs)
     rc = _build.kernel("ring_bwd_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), qs, ks, dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), qs, ks, dk.data_ptr(), dv.data_ptr(),
         b, h, k.shape[2], c, d, int(diagonal), int(first), 1, 1.0 / d**0.5,  # fp32 accumulators
         *_strides(q), *_strides(k), *_strides(v), *_strides(o), *_strides(do),
         *_strides(dk), *_strides(dv),

@@ -46,10 +46,9 @@ def _rel(a, r):
     return float((a.float() - r).norm() / r.norm())
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s,packed,causal", [(256, False, True), (200, True, True), (130, False, False)])
-def test_kernels_match_plain_versions(dev, d, s, packed, causal):
-    q, k, v, do, segs = _case(dev, 2, s, 4, 2, d, packed)
+def _check_kernels(dev, b, s, h, kh, d, packed, causal):
+    """Forward, dQ and dK/dV, one launch each, against the plain versions."""
+    q, k, v, do, segs = _case(dev, b, s, h, kh, d, packed)
     kw = dict(causal=causal, segment_ids=segs)
     f32 = [t.float() for t in (q, k, v)]
     flash.reset_launches()
@@ -64,6 +63,22 @@ def test_kernels_match_plain_versions(dev, d, s, packed, causal):
     assert _rel(dq, flash.flash_dq_reference(*ref_in, **kw)) <= 2e-2
     assert _rel(dk, dk_ref) <= 2e-2 and _rel(dv, dv_ref) <= 2e-2
     assert flash.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,packed,causal", [(256, False, True), (200, True, True), (130, False, False)])
+def test_kernels_match_plain_versions(dev, d, s, packed, causal):
+    _check_kernels(dev, 2, s, 4, 2, d, packed, causal)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("s,packed", [(1000, True), (2112, False)])
+def test_kernels_at_tile_edges(dev, d, group, s, packed):
+    """Sequences that end inside a 128-row tile (1000 = 7 x 128 + 104,
+    2112 = 16 x 128 + 64; the forward's q and KV tiles and the dK/dV
+    kernel's KV tiles are 128 rows, its q tiles 64), GQA groups of 1 and 4."""
+    _check_kernels(dev, 1, s, 4, 4 // group, d, packed, True)
 
 
 def test_autograd_goes_through_the_kernels(dev):

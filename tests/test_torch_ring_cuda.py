@@ -56,26 +56,35 @@ def _state(b, c, h, d, dev):
             torch.empty(b, c, h, d, dtype=torch.bfloat16, device=dev), torch.empty(b, h, c, **f32))
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("c,packed", [(256, False), (200, True)])
-def test_step_kernels_match_plain_versions(dev, d, c, packed):
-    b, h, kh = 2, 4, 2
+def _assert_state(mine, ref):
+    assert _rel(mine[0], ref[0]) <= 2e-2 and _rel(mine[2], ref[2]) <= 2e-2
+    assert float((mine[1] - ref[1]).abs().max()) <= 1e-3
+
+
+def _check_steps(dev, b, c, h, kh, d, packed):
+    """A rank's two steps, each kernel against its plain version: the
+    diagonal (first, state kept), the past chunk from that state (kept, and
+    finalized), dQ of both, each chunk's dK/dV stored, and the past chunk's
+    dK/dV added to the diagonal's accumulators."""
     q, do, ((k0, v0), (k1, v1)), (qs, ps) = _chunks(dev, b, c, h, kh, d, packed)
     f = lambda t: t.float()  # noqa: E731
     rf.reset_launches()
-    # step 0 on the diagonal, state kept; step 1 on the past chunk, finalized
     mine, ref = _state(b, c, h, d, dev), _state(b, c, h, d, dev)
     kw0 = dict(diagonal=True, first=True, finalize_step=False, q_segs=qs, k_segs=qs)
     rf.ring_fwd(q, k0, v0, *mine, **kw0)
     rf.ring_fwd_step_reference(f(q), f(k0), f(v0), *ref[:3], ref[3].float(), ref[4], **kw0)
-    assert _rel(mine[0], ref[0]) <= 2e-2 and _rel(mine[2], ref[2]) <= 2e-2
-    assert float((mine[1] - ref[1]).abs().max()) <= 1e-3
-    for t, r in zip(mine[:3], ref[:3]):  # the second step starts from one state
-        t.copy_(r)
-    kw1 = dict(diagonal=False, first=False, finalize_step=True, q_segs=qs, k_segs=ps)
+    _assert_state(mine, ref)
+    after_diagonal = [r.clone() for r in ref[:3]]
     o_ref = torch.empty(b, c, h, d, device=dev)
-    rf.ring_fwd(q, k1, v1, *mine, **kw1)
-    rf.ring_fwd_step_reference(f(q), f(k1), f(v1), *ref[:3], o_ref, ref[4], **kw1)
+    for finalize in (False, True):  # both start from one state
+        for t, r, x in zip(mine[:3], ref[:3], after_diagonal):
+            t.copy_(x)
+            r.copy_(x)
+        kw1 = dict(diagonal=False, first=False, finalize_step=finalize, q_segs=qs, k_segs=ps)
+        rf.ring_fwd(q, k1, v1, *mine, **kw1)
+        rf.ring_fwd_step_reference(f(q), f(k1), f(v1), *ref[:3], o_ref, ref[4], **kw1)
+        if not finalize:
+            _assert_state(mine, ref)
     o, lse = mine[3], mine[4]
     assert float((o.float() - o_ref).abs().max()) <= 2e-2 and _rel(o, o_ref) <= 1e-2
     assert float((lse - ref[4]).abs().max()) <= 1e-3
@@ -91,10 +100,32 @@ def test_step_kernels_match_plain_versions(dev, d, c, packed):
         kw["first"] = True  # each chunk's own accumulators start here
         rf.ring_bwd_dkv(q, k, v, o, do, lse, *dkv[i], **kw)
         rf.ring_dkv_step_reference(f(q), f(k), f(v), f(o), f(do), lse, *dkv_ref[i], **kw)
+    # accumulate: the past step added to the diagonal step's accumulators
+    dkv.append([t.clone() for t in dkv[0]])
+    dkv_ref.append([t.clone() for t in dkv_ref[0]])
+    kw = dict(diagonal=False, first=False, q_segs=qs, k_segs=ps)
+    rf.ring_bwd_dkv(q, k1, v1, o, do, lse, *dkv[2], **kw)
+    rf.ring_dkv_step_reference(f(q), f(k1), f(v1), f(o), f(do), lse, *dkv_ref[2], **kw)
     assert _rel(dq, dq_ref) <= 2e-2
     for got, want in zip(sum(dkv, []), sum(dkv_ref, [])):
         assert _rel(got, want) <= 2e-2
-    assert rf.LAUNCHES == {"ring_fwd": 2, "ring_bwd_dq": 2, "ring_bwd_dkv": 2}
+    assert rf.LAUNCHES == {"ring_fwd": 3, "ring_bwd_dq": 2, "ring_bwd_dkv": 3}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("c,packed", [(256, False), (200, True)])
+def test_step_kernels_match_plain_versions(dev, d, c, packed):
+    _check_steps(dev, 2, c, 4, 2, d, packed)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("c,packed", [(1000, True), (2112, False)])
+def test_step_kernels_at_tile_edges(dev, d, group, c, packed):
+    """Chunks that end inside a 128-row tile (1000 = 7 x 128 + 104,
+    2112 = 16 x 128 + 64), GQA groups of 1 and 4; with ``packed`` a
+    segment crosses the chunk boundary."""
+    _check_steps(dev, 1, c, 4, 4 // group, d, packed)
 
 
 @pytest.mark.parametrize("causal", [True, False])

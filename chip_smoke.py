@@ -8,15 +8,17 @@ Phases, each printing one line:
 
 1. device   the card, its power limit, and the build of the CUDA kernels
             from ``maggy_tpu_torch/csrc`` (nvcc, sm_90a) with each source's
-            ptxas registers and spill bytes; it fails if the Hopper kernels
-            (``ring_fwd.cu``, ``ring_bwd_dkv.cu``) spill. Three kernels serve
-            both paths: flash attention is the one-step ring.
+            ptxas registers and spill bytes; it fails if any of the three
+            Hopper kernels spills or ptxas notes that it serialised its
+            wgmma. Three kernels serve both paths: flash attention is the
+            one-step ring.
 2. kernels  each flash kernel (forward, dQ, dK/dV) against its plain PyTorch
             version, run in fp32 from the same bf16 inputs, on a causal, a
             packed (3 segments per row) and a ragged (S=1000) case at
-            B=2, S=2048, H=32, Kh=8, D=128. Times by CUDA events (median of
-            10), beside the bound (and the share of it reached) and
-            PyTorch's own SDPA as a yardstick.
+            B=2, S=2048, H=32, Kh=8, D=128. Device times by CUDA events
+            around calls back to back (the median of 5 batches of 10),
+            beside the bound (and the share of it reached) and PyTorch's
+            own SDPA as a yardstick.
 3. model    ``Decoder(llama3_8b(n_layers=4))`` through the kernels: each
             layer's attention output against the plain version on the same
             activations, and the logits against the same weights with
@@ -29,8 +31,9 @@ Phases, each printing one line:
             version at one rank's shapes of the ring below (B=1, C=2048,
             H=32, Kh=8, D=128): the diagonal step, a past step, the
             finalizing step, the dK/dV accumulators added to, and a packed
-            case whose segments cross the chunk boundary; times beside the
-            bound and SDPA on the same chunk pair. Then the LocalRing's
+            case whose segments cross the chunk boundary; times of a past
+            step beside the bound and SDPA on the same chunk pair, and of
+            the diagonal forward and dQ steps. Then the LocalRing's
             backward at S=8192: its leaf gradients against the flash
             kernels'.
 6. ring.model  ``Decoder(llama3_8b(n_layers=4))`` at B=1, S=8192 attending over
@@ -123,8 +126,6 @@ TPU_KERNELS = {
 }
 # flash attention is the one-step ring: each flash wrapper launches a ring kernel
 SOURCES = {name: f"maggy_tpu_torch/csrc/{name.replace('flash', 'ring')}.cu" for name in TPU_KERNELS}
-# the sources redesigned for Hopper (wgmma from a TMA-fed ring): they must not spill
-NO_SPILL = ("ring_fwd", "ring_bwd_dkv")
 
 
 def card_line() -> str:
@@ -139,19 +140,27 @@ def emit(phase: str, **fields) -> None:
     print(f"{phase}: " + json.dumps(fields, default=float), flush=True)
 
 
-def time_ms(torch, fn, reps: int = 10) -> float:
-    """Median over ``reps`` single calls, each between two CUDA events."""
+def time_ms(torch, fn, batches: int = 5, reps: int = 10) -> float:
+    """Device time of one call: the median over ``batches`` of the mean of
+    ``reps`` calls enqueued back to back between two CUDA events, after two
+    warm-up calls. The host's own work for a call (the wrapper's checks, the
+    tensor maps, the launch) then runs while the device works on the call
+    before, instead of adding to the time as it does when a single call
+    stands between the events; the median drops a batch that a pause of the
+    host (a collection, an allocation) stretched."""
     fn()
     fn()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
+        torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     times.sort()
     return times[len(times) // 2]
 
@@ -563,7 +572,8 @@ def phase_ring_kernels(torch):
         torch.cuda.empty_cache()
 
     # times at one rank's shapes: a past step (every pair visible; 6 of the
-    # 10 steps per attention call at n=4), and the diagonal forward step
+    # 10 steps per attention call at n=4), and the diagonal forward and dQ
+    # steps (the other 4)
     c = cases["plain"]
     q, do, ((k0, v0), (k1, v1)), o, lse = c["q"], c["do"], c["kv"], c["o"], c["lse"]
     acc, m, l, o_buf, lse_buf = ring_state(torch, torch.bfloat16)
@@ -581,6 +591,7 @@ def phase_ring_kernels(torch):
     }
     diagonal_fwd_ms = time_ms(torch, lambda: rf.ring_fwd(q, k0, v0, acc, m, l, o_buf, lse_buf, diagonal=True,
                                                           first=False, finalize_step=False))
+    diagonal_dq_ms = time_ms(torch, lambda: rf.ring_bwd_dq(q, k0, v0, o, do, lse, dq, diagonal=True, first=False))
     plain_ms = {
         "ring_fwd": time_ms(torch, lambda: rf.ring_fwd_step_reference(
             fq, fk, fv, acc_r, m_r, l_r, None, None, finalize_step=False, **past)),
@@ -596,6 +607,8 @@ def phase_ring_kernels(torch):
     sdpa_bwd_ms = time_sdpa_bwd(torch, qg, kg, vg, dot, is_causal=False)
     kt0, vt0 = (t.transpose(1, 2) for t in (k0, v0))
     sdpa_diagonal_fwd_ms = time_ms(torch, lambda: sdpa(qt, kt0, vt0, is_causal=True, enable_gqa=True))
+    kg0, vg0 = (t.detach().clone().requires_grad_(True) for t in (kt0, vt0))
+    sdpa_diagonal_bwd_ms = time_sdpa_bwd(torch, qg, kg0, vg0, dot, is_causal=True)
 
     pairs = RING_B * RING_C * RING_C  # a past step: every pair visible
     el = 2
@@ -608,6 +621,7 @@ def phase_ring_kernels(torch):
     }
     diag_pairs = RING_B * RING_C * (RING_C + 1) // 2
     diagonal_bound = bound(4 * D * diag_pairs * H, work["ring_fwd"][1])[0]
+    diagonal_dq_bound = bound(6 * D * diag_pairs * H, work["ring_bwd_dq"][1])[0]
     max_err = {
         "ring_fwd": max(r["err"]["finalize_o_max_abs"] for r in cases.values()),
         "ring_bwd_dq": max(r["err"]["dq_max_abs"] for r in cases.values()),
@@ -622,9 +636,12 @@ def phase_ring_kernels(torch):
         sdpa_fwd_ms=sdpa_fwd_ms, sdpa_bwd_ms=sdpa_bwd_ms,
         diagonal_fwd=dict(ms=diagonal_fwd_ms, bound_ms=diagonal_bound, share_of_bound=diagonal_bound / diagonal_fwd_ms,
                           sdpa_causal_fwd_ms=sdpa_diagonal_fwd_ms),
+        # SDPA's causal backward computes dQ, dK and dV together
+        diagonal_dq=dict(ms=diagonal_dq_ms, bound_ms=diagonal_dq_bound,
+                         share_of_bound=diagonal_dq_bound / diagonal_dq_ms, sdpa_causal_bwd_ms=sdpa_diagonal_bwd_ms),
         **rows,
     )
-    del cases, acc, m, l, o_buf, lse_buf, dq, dk, dv, acc_r, m_r, l_r, dq_r, dk_r, dv_r, qg, kg, vg
+    del cases, acc, m, l, o_buf, lse_buf, dq, dk, dv, acc_r, m_r, l_r, dq_r, dk_r, dv_r, qg, kg, vg, kg0, vg0
     torch.cuda.empty_cache()
     local_ring_grads(torch, gen)
     return rows
@@ -1024,16 +1041,20 @@ def main(argv=None) -> int:
     card = card_line()
     t0 = time.perf_counter()
     _build.build()
+    # every source is a Hopper design (wgmma from a TMA-fed ring): none may
+    # spill, and ptxas may not serialise its wgmma for want of registers
     ptxas = {src: ptxas_of(src) for src in _build.KERNELS}
-    spills = {src: p["spill_bytes"] for src, p in ptxas.items() if src in NO_SPILL and p["spill_bytes"]}
+    notes = {src: r["notes"] for src, r in _build.ptxas_report().items() if r["notes"]}
+    spills = {src: p["spill_bytes"] for src, p in ptxas.items() if p["spill_bytes"]}
+    serialised = [n for lines in notes.values() for n in lines if "wgmma" in n and "serializ" in n.lower()]
     emit(
-        "device", ok=not spills, name=torch.cuda.get_device_name(0), card=card,
+        "device", ok=not spills and not serialised, name=torch.cuda.get_device_name(0), card=card,
         torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=time.perf_counter() - t0, ptxas=ptxas,
-        ptxas_notes={src: r["notes"] for src, r in _build.ptxas_report().items() if r["notes"]},
+        build_s=time.perf_counter() - t0, ptxas=ptxas, ptxas_notes=notes,
     )
-    if spills:
-        raise SystemExit(f"the Hopper kernels spill registers (bytes): {spills}")
+    if spills or serialised:
+        raise SystemExit(f"a Hopper kernel spills registers (bytes: {spills}) or has its wgmma serialised: "
+                         f"{serialised}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -1,5 +1,6 @@
-// What every attention kernel shares, whatever its tensor-core route: the
-// masking value, bf16 conversion, the stride structs and the output store.
+// What every attention kernel shares besides the Hopper pieces of
+// hopper.cuh: the masking value, bf16 conversion, the stride structs and the
+// output store.
 //
 // Layouts: q/o/do are [B, C, H, D], k/v [B, C, Kh, D], read through their
 // strides (the last dimension contiguous, the others multiples of 8 elements

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the attention kernels ring_fwd.cu and
-// ring_bwd_dkv.cu: mbarriers, TMA tile loads, wgmma descriptors and
-// products, and the register hand-over between a producer and its consumers.
+// Hopper (sm_90a) building blocks of the three attention kernels,
+// ring_fwd.cu, ring_bwd_dq.cu and ring_bwd_dkv.cu: mbarriers, TMA tile
+// loads, wgmma descriptors and products, and the register hand-over between
+// a producer and its consumers.
 //
 // Tiles in shared memory. TMA copies a tile of R rows and D columns of a
 // [B, S, H, D] tensor as D / 64 panels of R x 64 bf16 (128 bytes a row), each
@@ -9,19 +10,18 @@
 // - K-major (the product's depth runs along the 64 columns; S = Q K^T takes
 //   Q and K so): 8-row groups 1024 bytes apart (SBO); a depth step of 16
 //   columns moves the start 32 bytes within a panel, or to the next panel.
-// - MN-major (the depth runs along the rows; P V takes V so, the transpose
-//   bit set): 8-row depth groups 1024 bytes apart (SBO), the next 64 output
-//   columns one panel further (LBO); a depth step of 16 rows moves the start
-//   2048 bytes.
+// - MN-major (the depth runs along the rows; P V takes V so, dS K takes K
+//   so, the transpose bit set): 8-row depth groups 1024 bytes apart (SBO),
+//   the next 64 output columns one panel further (LBO); a depth step of 16
+//   rows moves the start 2048 bytes.
 // A tile that threads store themselves for wgmma to read (ring_bwd_dkv.cu's
 // P^T and dS^T) follows the same pattern: the 16-byte chunk c of row r lies
 // at r * 128 + (c ^ (r % 8)) * 16, then fence_async_smem and a barrier.
 // The accumulator of a 64 x N product lives in the four warps of a
 // warpgroup: warp w holds rows 16w + g and 16w + g + 8 (g = lane / 4) and,
 // for each 8-column block j, d[4j + 0..1] on the first row and d[4j + 2..3]
-// on the second, at columns 8j + 2 (lane % 4) + 0..1. That is the layout of
-// mma.sync's accumulator, and its 16-column slices are the register A operand
-// of the next product (pack_a).
+// on the second, at columns 8j + 2 (lane % 4) + 0..1. Its 16-column slices,
+// rounded to bf16, are the register A operand of the next product (pack_a).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time, nothing links libcuda
@@ -308,6 +308,12 @@ inline int encode_rows(CUtensorMap* map, const void* base, int D, int rows, int 
     return rc == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<Encode>(fn) : nullptr;
   }();
   if (encode == nullptr) return -2;
+  // The encoder works in the calling thread's current context. A thread
+  // that has made no runtime call yet (such as PyTorch's autograd thread
+  // before its first launch) has none, and the encoder then refuses every
+  // tensor: bind the current device's primary context first.
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || cudaSetDevice(device) != cudaSuccess) return -3;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(h_stride) * 2, static_cast<cuuint64_t>(s_stride) * 2,

@@ -128,6 +128,61 @@ def test_step_kernels_at_tile_edges(dev, d, group, c, packed):
     _check_steps(dev, 1, c, 4, 4 // group, d, packed)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("c", [200, 1000, 2112])
+@pytest.mark.parametrize("packed", [False, True])
+def test_dq_kernel_step_by_step(dev, d, c, packed):
+    """dQ alone, held to its plain version after each step: the diagonal
+    stored (``first``), then a past step added to it. C is no multiple of
+    the 128-row q tile (TMA's zero fill, the row guard of the store); with
+    ``packed`` a segment crosses the chunk boundary."""
+    b, h, kh = 1, 4, 2
+    q, do, ((k0, v0), (k1, v1)), (qs, ps) = _chunks(dev, b, c, h, kh, d, packed, seed=4)
+    f = lambda t: t.float()  # noqa: E731
+    # O and the LSE of both steps, from the plain version
+    acc, m, l, o, lse = _state(b, c, h, d, dev)
+    o32 = torch.empty(b, c, h, d, device=dev)
+    rf.ring_fwd_step_reference(f(q), f(k0), f(v0), acc, m, l, o32, lse, diagonal=True, first=True,
+                               finalize_step=False, q_segs=qs, k_segs=qs)
+    rf.ring_fwd_step_reference(f(q), f(k1), f(v1), acc, m, l, o32, lse, diagonal=False, first=False,
+                               finalize_step=True, q_segs=qs, k_segs=ps)
+    o = o32.to(torch.bfloat16)
+    rf.reset_launches()
+    dq, dq_ref = (torch.full((b, c, h, d), float("nan"), device=dev) for _ in range(2))
+    for i, (k, v, kseg, diagonal) in enumerate(((k0, v0, qs, True), (k1, v1, ps, False))):
+        kw = dict(diagonal=diagonal, first=i == 0, q_segs=qs, k_segs=kseg)
+        rf.ring_bwd_dq(q, k, v, o, do, lse, dq, **kw)
+        rf.ring_dq_step_reference(f(q), f(k), f(v), f(o), f(do), lse, dq_ref, **kw)
+        assert bool(torch.isfinite(dq).all())
+        assert _rel(dq, dq_ref) <= 2e-2, ("diagonal", "past")[i]
+    assert rf.LAUNCHES == {"ring_fwd": 0, "ring_bwd_dq": 2, "ring_bwd_dkv": 0}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_dq_of_a_row_that_sees_no_key(dev, d):
+    """A past step whose KV chunk holds none of some q rows' segment: the
+    forward gives those rows LSE = +inf, and their dQ must come out 0 and
+    finite (P = 0 there), the other rows as the plain version."""
+    b, c, h, kh = 1, 1000, 4, 2
+    q, do, (_, (k, v)), _ = _chunks(dev, b, c, h, kh, d, False, seed=5)
+    qs = (torch.arange(c, device=dev) >= 600).int()[None].contiguous()  # rows 600.. are segment 1
+    ks = torch.zeros(b, c, dtype=torch.int32, device=dev)  # the KV chunk is all segment 0
+    kw = dict(diagonal=False, first=True, q_segs=qs, k_segs=ks)
+    rf.reset_launches()
+    acc, m, l, o, lse = _state(b, c, h, d, dev)
+    rf.ring_fwd(q, k, v, acc, m, l, o, lse, finalize_step=True, **kw)
+    assert bool(torch.isinf(lse[..., 600:]).all()) and bool(torch.isfinite(lse[..., :600]).all())
+    dq = torch.full((b, c, h, d), float("nan"), device=dev)
+    rf.ring_bwd_dq(q, k, v, o, do, lse, dq, **kw)
+    dq_ref = torch.empty_like(dq)
+    f = lambda t: t.float()  # noqa: E731
+    rf.ring_dq_step_reference(f(q), f(k), f(v), f(o), f(do), lse, dq_ref, **kw)
+    assert bool(torch.isfinite(dq).all())
+    assert bool((dq[:, 600:] == 0).all())
+    assert _rel(dq[:, :600], dq_ref[:, :600]) <= 2e-2
+    assert rf.LAUNCHES == {"ring_fwd": 1, "ring_bwd_dq": 1, "ring_bwd_dkv": 0}
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_local_ring_goes_through_the_kernels(dev, causal):
     n, b, s, h, kh, d = 4, 1, 512, 8, 2, 128

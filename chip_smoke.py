@@ -51,6 +51,24 @@ Phases, each printing one line:
             fault (the last dK/dV rotation skipped) must land above the
             gradient limit. Each rank then times one more step. With one card
             it reports that it did not run.
+9. serve.model  ``Decoder(llama3_8b())`` at full depth (32 layers, fp32
+            masters from a seed, a bf16 copy of the projections): prompts of
+            100, 517, 1000 and 2000 tokens prefilled into a dense and a paged
+            batch cache (shuffled page tables), then 32 greedy steps of the
+            batch. Every position's logits against the training forward (the
+            flash forward kernel) over the same tokens, beside the kernel's
+            plain version as the yardstick; paged against dense bit for bit;
+            a planted fault (one request's page table with two pages swapped)
+            that the limit must catch; the cache path launches no kernel.
+10. serve.engine  ``Engine(llama3_8b(), num_slots=8)`` with its defaults
+            (paged, page 16, prefix reuse, async): 16 requests, 64-1536
+            tokens, eight sharing a 512-token system prefix, half greedy and
+            half sampled. Every request finishes; prefix hits; the streams
+            again paged-sync and dense-async and in a permuted order, equal;
+            each prefix hit's first-token logits against a full prefill. Then
+            ``serve.engine.times``: prefill per bucket, a decode step with
+            every slot busy beside its bound, and the device's busy share
+            over it (torch.profiler).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -111,6 +129,27 @@ TOL_LOGITS_REL_L2 = 3e-2
 # but the global norm only by 2.8e-3 and the loss not at all
 TOL_DIST_LOSS_REL = 1e-6
 TOL_DIST_LEAF_GRAD_REL = 1e-4
+# the serving phases: Llama-3-8B at full depth (32 layers), fp32 masters and
+# a bf16 serving copy of the projections (48 GB) on one card. serve.model's
+# prompts are ragged, no multiple of the 256-token read chunk or the 16-token
+# page
+SERVE_PROMPTS = (100, 517, 1000, 2000)
+SERVE_STEPS = 32
+SERVE_PAGE = 16
+ENGINE_SLOTS = 8
+ENGINE_REQUESTS = 16
+ENGINE_SHARED = 8  # requests that share a system prefix of ENGINE_SYSTEM tokens
+ENGINE_SYSTEM = 512
+PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
+# the cache path's logits against the training forward's, per row (one
+# position's logits over the vocabulary). At 32 layers of random bf16 weights
+# two right attentions are further apart than at 4: the flash kernel and its
+# plain version (fp32 scores) on the same weights and tokens differed by
+# 4.3e-2 (median) to 5.9e-2 (worst row) on an H100, so the 4-layer model
+# phase's 3e-2 cannot hold; the planted page-table fault moved its rows by
+# 0.72 (median) to 0.92. The limit sits between: 1.7x the yardstick's worst
+# row, and the fault must exceed it at its median row, not only its worst
+TOL_SERVE_LOGITS_REL_L2 = 1e-1
 # H100 SXM dense peaks (NVIDIA data sheet, 700 W)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -973,6 +1012,353 @@ def phase_ring_dist(torch, n_layers: int, seq: int, card: str) -> None:
                          "step, or the gradient limit let the planted fault through")
 
 
+def _sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def row_rel_l2(a, b):
+    """Relative L2 of each row of [N, V] logits against the reference's."""
+    a, b = a.float(), b.float()
+    return (a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)
+
+
+def _spread(errs) -> dict:
+    errs = errs.float().sort().values
+    return dict(max=float(errs[-1]), p99=float(errs[int(0.99 * (len(errs) - 1))]),
+                median=float(errs[len(errs) // 2]))
+
+
+def shuffled_page_tables(torch, rows, gen, page: int, per_row: int, steps: int, device):
+    """A page pool twice the size ``rows`` (prompt lengths) need and their
+    page tables: each row's pages drawn from a random permutation of the
+    pool, so no row's pages are contiguous or in order."""
+    need = [-(-(n + steps) // page) for n in rows]
+    num_pages = 2 * sum(need) + 1
+    perm = 1 + torch.randperm(num_pages - 1, generator=gen, device=device)
+    table = torch.zeros((len(rows), per_row), dtype=torch.int32, device=device)
+    at = 0
+    for i, n in enumerate(need):
+        table[i, :n] = perm[at:at + n]
+        at += n
+    return num_pages, table
+
+
+def phase_serve_model(torch, master, card: str, prompt_lens=SERVE_PROMPTS, steps=SERVE_STEPS, page=SERVE_PAGE):
+    """The cache path at full depth: each prompt prefilled into a dense and
+    a paged batch cache (shuffled pages), then ``steps`` greedy steps of
+    the whole batch, rows at different positions. Every prompt and generated
+    position's logits against the training forward (the flash kernel) over
+    the same tokens; paged against dense bit for bit; and a planted fault,
+    one request's page table with two pages swapped, that the logits limit
+    must catch."""
+    import dataclasses
+
+    from maggy_tpu_torch.models import Decoder
+    from maggy_tpu_torch.models.generate import init_cache
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.serve.engine import serving_model
+
+    def plain_attention(q, k, v, *, causal=True, segment_ids=None):
+        return flash.flash_fwd_reference(q, k, v, causal=causal, segment_ids=segment_ids)[0]
+
+    cfg, dev = master.cfg, master.embedding.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev) for n in prompt_lens]
+    n, s = len(prompts), cfg.max_seq_len
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = serving_model(cfg, master, dev)
+    num_pages, table = shuffled_page_tables(torch, prompt_lens, gen, page, s // page, steps, dev)
+    paged_cfg = dataclasses.replace(cfg, decode=True, paged=True, page_size=page, num_pages=num_pages)
+    zeros = torch.zeros((n, 1), device=dev)
+    caches = {"dense": init_cache(cfg, zeros), "paged": init_cache(paged_cfg, zeros)}
+    caches["paged"].pages.copy_(table)
+    logits = {name: [[] for _ in prompts] for name in caches}
+    fed = {name: [[] for _ in prompts] for name in caches}
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for name, cache in caches.items():
+            for i, p in enumerate(prompts):
+                pos = torch.arange(len(p), device=dev)[None]
+                logits[name][i].append(model(p[None], pos, cache=cache.row(i), kv_len=len(p))[0])
+            tokens = torch.stack([rows[0][-1].argmax() for rows in logits[name]])
+            start = torch.tensor(prompt_lens, device=dev)
+            for j in range(steps):
+                for i in range(n):
+                    fed[name][i].append(tokens[i])
+                out = model(tokens[:, None], (start + j)[:, None], cache=cache, kv_len=max(prompt_lens) + j + 1)
+                for i in range(n):
+                    logits[name][i].append(out[i])
+                tokens = out[:, 0].argmax(-1)
+        _sync(torch, dev)
+        cache_path_s = time.perf_counter() - t0
+        cache_path_launches = dict(flash.LAUNCHES)
+        cat = {name: [torch.cat(rows) for rows in per] for name, per in logits.items()}
+        paged_equals_dense = all(torch.equal(a, b) for a, b in zip(cat["dense"], cat["paged"]))
+        del logits, cat["paged"], caches
+        # the training forward over each prompt and its generated tokens
+        # (the flash kernel); the yardstick: the same forward with the
+        # kernel's plain version (fp32 scores), two right attentions apart
+        plain = Decoder(dataclasses.replace(cfg, attention_fn=plain_attention), device="meta")
+        plain.load_state_dict(master.state_dict(), assign=True)
+        rows, fault_ref, ref_launches = [], None, 0
+        for i, p in enumerate(prompts):
+            seq = torch.cat([p, torch.stack(fed["dense"][i])])[None]
+            flash.reset_launches()
+            ref = master(seq)[0]
+            ref_launches += flash.LAUNCHES["flash_fwd"]
+            err = row_rel_l2(cat["dense"][i], ref)
+            plain_ref = plain(seq)[0]
+            rows.append(dict(prompt=len(p), prefill=_spread(err[:len(p)]), decode=_spread(err[len(p):]),
+                             plain_vs_kernel=_spread(row_rel_l2(plain_ref, ref)),
+                             cache_vs_plain=_spread(row_rel_l2(cat["dense"][i], plain_ref))))
+            del plain_ref
+            if i == 0:
+                fault_ref = ref[len(p):]
+            del ref
+        # planted fault: prompt 0 through its own paged cache, whose table has
+        # its first page and the page the decode writes into swapped, then the
+        # same tokens fed as above
+        p0 = prompts[0]
+        fault_cache = init_cache(paged_cfg, zeros[:1])
+        fault_cache.pages.copy_(table[:1])
+        pos = torch.arange(len(p0), device=dev)[None]
+        model(p0[None], pos, cache=fault_cache, kv_len=len(p0))
+        tail = len(p0) // page
+        fault_cache.pages[0, [0, tail]] = fault_cache.pages[0, [tail, 0]]
+        fault_rows = []
+        for j, tok in enumerate(fed["dense"][0]):
+            at = torch.full((1, 1), len(p0) + j, device=dev)
+            fault_rows.append(model(tok.view(1, 1), at, cache=fault_cache, kv_len=len(p0) + j + 1)[0])
+        fault = _spread(row_rel_l2(torch.cat(fault_rows), fault_ref))
+    _sync(torch, dev)
+    worst = max(max(r["prefill"]["max"], r["decode"]["max"]) for r in rows)
+    expected_ref = cfg.n_layers * n if dev.type == "cuda" else 0
+    ok = (
+        paged_equals_dense
+        and worst <= TOL_SERVE_LOGITS_REL_L2
+        and fault["median"] > TOL_SERVE_LOGITS_REL_L2
+        and all(v == 0 for v in cache_path_launches.values())
+        and ref_launches == expected_ref
+        and all(bool(torch.isfinite(r).all()) for r in cat["dense"])
+    )
+    emit(
+        "serve.model", ok=ok, layers=cfg.n_layers, prompts=list(prompt_lens), steps=steps, page=page,
+        paged_equals_dense=paged_equals_dense, logits_rel_l2_per_row=rows, worst=worst,
+        tol_logits_rel_l2_per_row=TOL_SERVE_LOGITS_REL_L2, planted_fault=fault,
+        cache_path_flash_launches=cache_path_launches, reference_flash_fwd_launches=ref_launches,
+        cache_path_s=cache_path_s, max_memory_allocated_gib=_peak_gib(torch, dev), card=card,
+    )
+    if not ok:
+        raise SystemExit("serve.model failed: the cache path's logits disagree with the training forward, "
+                         "paged with dense, or the limit let the planted page-table fault through")
+    del model, fault_cache, cat, plain
+
+
+def _peak_gib(torch, dev):
+    return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+
+
+def engine_requests(torch, cfg, n=ENGINE_REQUESTS, shared=ENGINE_SHARED, system=ENGINE_SYSTEM,
+                    lengths=(64, 1536), max_new=(32, 128), seed=6):
+    """The engine phase's requests: ``shared`` prompts of a ``system``-token
+    prefix plus a suffix (first, so they share one admission wave) and the
+    rest unshared, ``lengths`` tokens (one of each end: the longest fills the
+    2048 bucket); ``max_new`` drawn from its range; even ones greedy, odd
+    ones sampled at 0.8, top-k 40."""
+    from maggy_tpu_torch.serve import Request, SamplingParams
+
+    gen = torch.Generator().manual_seed(seed)
+    lo, hi = lengths
+
+    def draw(a, b, k=1):
+        return torch.randint(a, b + 1, (k,), generator=gen).tolist()
+
+    sys_prompt = draw(0, cfg.vocab_size - 1, system)
+    prompts = [sys_prompt + draw(0, cfg.vocab_size - 1, draw(16, hi - system)[0]) for _ in range(shared)]
+    prompts += [draw(0, cfg.vocab_size - 1, k) for k in [hi, lo] + draw(lo, hi, n - shared - 2)]
+    out = []
+    for i, prompt in enumerate(prompts):
+        sampled = i % 2 == 1
+        out.append(Request(prompt=prompt, id=f"r{i}", params=SamplingParams(
+            max_new=draw(*max_new)[0], temperature=0.8 if sampled else 0.0, top_k=40 if sampled else 0, seed=i)))
+    return out
+
+
+def drive_engine(engine, requests, order=None):
+    """Admit in ``order`` as slots free, step, release each request at its
+    ``max_new``. Returns ({id: tokens}, the first-token logits of every
+    prefix-hit admission by id)."""
+    import copy
+
+    pending = [copy.deepcopy(requests[i]) for i in (order or range(len(requests)))]
+    streams, owner, hit_logits = {}, {}, {}
+    while pending or engine.slots.active_count:
+        while pending and engine.slots.free_slots():
+            req = pending.pop(0)
+            hits = engine.prefix_hits
+            slot, first = engine.admit(req)
+            if engine.prefix_hits > hits:
+                hit_logits[req.id] = engine.last_admit_logits
+            streams[req.id], owner[slot] = [first], req
+        for slot, tok in engine.step().tokens.items():
+            req = owner[slot]
+            streams[req.id].append(tok)
+            if len(streams[req.id]) >= req.params.max_new:
+                engine.release(slot)
+    engine.flush()
+    return streams, hit_logits
+
+
+def phase_serve_engine(torch, master, card: str, requests, num_slots=ENGINE_SLOTS, system=ENGINE_SYSTEM,
+                       timed_steps=20, profiled_steps=10, buckets=PREFILL_BUCKETS):
+    """``Engine`` with its defaults (paged, page 16, prefix reuse, async):
+    the requests to completion; the greedy streams again paged-sync and
+    dense-async; every stream again admitted in a permuted order; each
+    prefix hit's first-token logits against a full prefill. Then the
+    numbers: prefill time per bucket, a steady decode step at every slot
+    busy beside its bound, and the device's busy share over it."""
+    import gc
+
+    from maggy_tpu_torch.models.generate import prefill
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.serve import Engine, Request, SamplingParams
+
+    cfg, dev = master.cfg, master.embedding.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def fresh(**kw):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return Engine(cfg, master, num_slots=num_slots, device=dev, **kw)
+
+    flash.reset_launches()
+    runs, hits = {}, {}
+    t0 = time.perf_counter()
+    engine = fresh()
+    runs["paged_async"], hit_logits = drive_engine(engine, requests)
+    _sync(torch, dev)
+    run_s = time.perf_counter() - t0
+    hits["paged_async"] = engine.prefix_hits
+    # each prefix hit's first-token logits against a full prefill of its prompt
+    hit_errs = {}
+    with torch.no_grad():
+        for req in requests:
+            if req.id in hit_logits:
+                tokens = torch.tensor([req.prompt], device=dev)
+                pos = torch.arange(len(req.prompt), device=dev)[None]
+                full, _ = prefill(engine.model, tokens, pos)
+                hit_errs[req.id] = float(row_rel_l2(hit_logits[req.id][None], full[0, -1:])[0])
+                del full
+    stats = dict(steps=engine.steps, tokens_out=engine.tokens_out, compile_counts=engine.compile_counts,
+                 prefix=engine.prefix_stats, pages=engine.paging_stats)
+    del engine, hit_logits
+    for name, kw in (("paged_sync", dict(async_decode=False)), ("dense_async", dict(paged=False))):
+        engine = fresh(**kw)
+        runs[name], _ = drive_engine(engine, requests)
+        hits[name] = engine.prefix_hits
+        del engine
+    # shared-prefix requests reversed after the first (which prefills the
+    # prefix for all), the others reversed: other slots, other batch-mates
+    n_shared = sum(1 for r in requests if r.prompt[:system] == requests[0].prompt[:system])
+    order = [0] + list(range(n_shared - 1, 0, -1)) + list(range(len(requests) - 1, n_shared - 1, -1))
+    engine = fresh()
+    runs["permuted"], _ = drive_engine(engine, requests, order)
+    hits["permuted"] = engine.prefix_hits
+    del engine
+    greedy = [r.id for r in requests if r.params.temperature == 0.0]
+    sampled = [r.id for r in requests if r.params.temperature > 0.0]
+    base = runs["paged_async"]
+    checks = dict(
+        all_finished=all(len(base.get(r.id, ())) == r.params.max_new for r in requests),
+        prefix_hits=hits["paged_async"],
+        greedy_equal_across_engines=all(runs[k][i] == base[i] for k in ("paged_sync", "dense_async") for i in greedy),
+        all_streams_equal_across_engines=all(runs[k] == base for k in ("paged_sync", "dense_async")),
+        sampled_equal_permuted=all(runs["permuted"][i] == base[i] for i in sampled),
+        greedy_equal_permuted=all(runs["permuted"][i] == base[i] for i in greedy),
+        hit_logits_max_rel_l2=max(hit_errs.values(), default=None),
+        no_kernel_launched=all(v == 0 for v in flash.LAUNCHES.values()),
+    )
+    ok = (checks["all_finished"] and checks["prefix_hits"] >= n_shared - 1
+          and checks["greedy_equal_across_engines"] and checks["sampled_equal_permuted"]
+          and checks["no_kernel_launched"] and len(hit_errs) == checks["prefix_hits"]
+          and checks["hit_logits_max_rel_l2"] <= TOL_SERVE_LOGITS_REL_L2)
+    emit("serve.engine", ok=ok, slots=num_slots, requests=len(requests), run_s=run_s, **checks,
+         hits_by_run=hits, hit_logits_rel_l2=hit_errs, tol_logits_rel_l2=TOL_SERVE_LOGITS_REL_L2, **stats,
+         card=card)
+    if not ok:
+        raise SystemExit(f"serve.engine failed: {checks}")
+    serve_engine_times(torch, fresh(), requests, card, timed_steps, profiled_steps, buckets)
+
+
+def serve_engine_times(torch, engine, requests, card, timed_steps, profiled_steps, buckets):
+    """Prefill time per bucket, then a steady decode step with every slot
+    busy: its time, tokens/s, bound, and the device's busy share."""
+    from maggy_tpu_torch.models.transformer import Dense
+    from maggy_tpu_torch.serve import Request, SamplingParams
+
+    cfg, dev = engine.cfg, engine.device
+    gen = torch.Generator().manual_seed(7)
+    prefill_ms = {}
+    for bucket in buckets:
+        times = []
+        for _ in range(2):
+            prompt = torch.randint(0, cfg.vocab_size, (bucket,), generator=gen).tolist()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            slot, _ = engine.admit(Request(prompt=prompt, params=SamplingParams(max_new=1)))
+            times.append((time.perf_counter() - t0) * 1e3)
+            engine.release(slot)
+        prefill_ms[bucket] = times
+    # every slot busy: the shared-prefix requests, long enough not to finish
+    for req in requests[:engine.slots.num_slots]:
+        engine.admit(Request(prompt=list(req.prompt), params=SamplingParams(max_new=engine.max_seq_len // 4)))
+    for _ in range(4):
+        engine.step()
+    lengths = [engine.slots.get(s).next_pos for s in engine.slots.active_slots()]
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        engine.step()
+    _sync(torch, dev)
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed_steps
+    busy_ms, top = None, []
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(profiled_steps):
+                engine.step()
+            _sync(torch, dev)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+                   and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / profiled_steps
+        launches = sum(e.count for e in kernels) / profiled_steps
+        top = sorted(((e.self_device_time_total / 1e3 / profiled_steps, e.key[:70], e.count // profiled_steps)
+                      for e in kernels), reverse=True)[:10]
+    # the least a step could take: every bf16 projection weight and every
+    # cached K/V of the active rows read once (mid-window lengths)
+    weight_bytes = sum(m.weight.numel() * m.weight.element_size() for m in engine.model.modules()
+                       if isinstance(m, Dense))
+    per_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    kv_bytes = sum(n + 1 + timed_steps // 2 for n in lengths) * per_token
+    bound_ms = (weight_bytes + kv_bytes) / PEAK_BYTES * 1e3
+    slots = len(lengths)
+    emit("serve.engine.times", slots=slots, prefill_ms=prefill_ms, decode_step_ms=step_ms,
+         tokens_per_sec=slots * 1e3 / step_ms, decode_bound_ms=bound_ms, bound_by="bytes",
+         weight_gib=weight_bytes / 2**30, kv_gib=kv_bytes / 2**30, share_of_bound=bound_ms / step_ms,
+         device_busy_ms_per_step=busy_ms, busy_share=None if busy_ms is None else busy_ms / step_ms,
+         kernel_launches_per_step=None if busy_ms is None else launches,
+         top_kernels=[dict(ms=m, name=k, launches=c) for m, k, c in top],
+         cache_lengths=lengths, max_memory_allocated_gib=_peak_gib(torch, dev), card=card)
+    del engine
+
+
 def _category(name: str) -> str:
     low = name.lower()
     # the three attention kernels, whether a flash or a ring wrapper launched them
@@ -1066,6 +1452,21 @@ def main(argv=None) -> int:
     ring_launches = phase_ring_train(torch, N_LAYERS, RING_S, TRAIN_STEPS, card, args.profile)
     launches.update({k: v for k, v in ring_launches.items() if k.startswith("ring_")})
     phase_ring_dist(torch, N_LAYERS, RING_S, card)
+
+    # serving: the full model, its weights shared by both phases
+    import gc
+
+    from maggy_tpu_torch.models import Decoder, DecoderConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    master = Decoder(DecoderConfig.llama3_8b(), device="cuda", generator=gen)
+    phase_serve_model(torch, master, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_engine(torch, master, card, engine_requests(torch, master.cfg))
+    del master
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=TPU_KERNELS[name],

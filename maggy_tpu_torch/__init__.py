@@ -2,7 +2,8 @@
 
 A second package beside :mod:`maggy_tpu`, which stays the reference. It
 imports ``torch`` and never JAX or anything of ``maggy_tpu``. Its layout
-follows the JAX package's (``ops/``, ``models/``, ``train/``); the TPU's
+follows the JAX package's (``ops/``, ``models/``, ``train/``, ``parallel/``,
+``serve/``, ``telemetry/``); the TPU's
 Pallas kernels become hand-written CUDA kernels under ``csrc/``, built with
 ``nvcc`` at first use (nothing CUDA-specific happens at import).
 

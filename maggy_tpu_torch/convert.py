@@ -1,4 +1,5 @@
-"""Weights of the JAX package's ``Decoder`` as a PyTorch ``state_dict``.
+"""Weights of the JAX package's ``Decoder`` as a PyTorch ``state_dict``, and
+its decode cache as the port's ``KVCache``.
 
 The JAX tree is taken as numpy arrays (``jax.device_get`` of the params, or
 of ``{"params": ...}``), with its flax partitioning boxes either unboxed or
@@ -64,3 +65,41 @@ def _map(tree, fn):
     if isinstance(tree, Mapping):
         return {k: _map(v, fn) for k, v in tree.items()}
     return fn(tree)
+
+
+def _cache_leaf(tree, cfg, name: str):
+    """Cache leaf ``name`` of every layer, stacked on a leading layer axis:
+    ``layers/layer/attn/<name>`` already is when scanned, else one leaf per
+    ``layers_<i>``. None when the cache has no such leaf."""
+    if cfg.scan_layers:
+        attn = tree["layers"]["layer"]["attn"]
+        return _arr(attn[name]) if name in attn else None
+    attns = [tree[f"layers_{i}"]["layer"]["attn"] for i in range(cfg.n_layers)]
+    if name not in attns[0]:
+        return None
+    return np.stack([_arr(a[name]) for a in attns])
+
+
+def kv_cache_from_flax(cache_np: Dict[str, Any], cfg, device="cpu"):
+    """The port's ``KVCache`` holding the same state as a JAX decode cache
+    (numpy: ``jax.device_get`` of the ``"cache"`` collection, or of
+    ``{"cache": ...}``), scanned ``[L, ...]`` or per-layer as
+    ``cfg.scan_layers`` says. K/V keep their layout (``[L, B, S, Kh, D]``
+    dense, ``[L, N, P, Kh, D]`` paged); the write index, the page table and
+    the segment-id track, identical in every layer, are taken from layer 0."""
+    from maggy_tpu_torch.models.transformer import KVCache
+
+    tree = cache_np.get("cache", cache_np)
+
+    def tensor(name, dtype):
+        leaf = _cache_leaf(tree, cfg, name)
+        return None if leaf is None else torch.from_numpy(np.array(leaf)).to(device=device, dtype=dtype)
+
+    def first_layer(name):
+        t = tensor(name, torch.int32)
+        return None if t is None else t[0].contiguous()
+
+    return KVCache(
+        k=tensor("k", cfg.dtype), v=tensor("v", cfg.dtype), index=first_layer("index"),
+        pages=first_layer("pages"), seg=first_layer("seg"),
+    )

@@ -1,9 +1,22 @@
-"""Flagship model family: LLaMA-style decoder-only transformer (training path).
+"""Flagship model family: LLaMA-style decoder-only transformer.
 
-Counterpart of :mod:`maggy_tpu.models.transformer` for the non-decode path:
-RMSNorm + RoPE + SwiGLU + grouped-query attention, bf16 compute over fp32
-parameters, LOCO ablation gates, tied embeddings, logit soft-capping and
-per-layer rematerialisation through :func:`torch.utils.checkpoint`.
+Counterpart of :mod:`maggy_tpu.models.transformer`: RMSNorm + RoPE + SwiGLU +
+grouped-query attention, bf16 compute over fp32 parameters, LOCO ablation
+gates, tied embeddings, logit soft-capping and per-layer rematerialisation
+through :func:`torch.utils.checkpoint`; and the KV-cache decode path, dense
+or paged, that the serving engine runs.
+
+The decode path. Flax keeps the cache in a mutable ``"cache"`` collection
+per layer and selects the path by ``cfg.decode``; here an explicit
+:class:`KVCache` is passed to ``Decoder.forward(..., cache=...)``, which then
+appends this call's K/V to it in place and attends every query over what is
+cached. One module serves a one-row prefill cache and the batch cache
+alike. The cache is read in ``decode_chunk``-sized chunks under the
+online-softmax recurrence of :mod:`maggy_tpu_torch.ops.attention`, and only
+as many chunks as the longest row has written: that count is a host int
+(``kv_len``), since reading it from the device would block an asynchronous
+decode loop. A bound above the device's is exact (a chunk a row sees no key
+of leaves its state bit-identical), one below it is wrong.
 
 Numerics follow flax's: every dense layer casts its input and its fp32
 weight to ``cfg.dtype`` and computes there; RMSNorm multiplies its scale in
@@ -28,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from maggy_tpu_torch.ops import attention as ops_attn
 from maggy_tpu_torch.util import resolve_device
 
 # remat policies by name. "nothing" recomputes the whole layer in the
@@ -89,6 +103,7 @@ class DecoderConfig:
     d_ff: int = 1376
     rope_theta: float = 500_000.0
     norm_eps: float = 1e-5
+    max_seq_len: int = 2048
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     # layout of the JAX parameter tree this config converts from
@@ -98,9 +113,16 @@ class DecoderConfig:
     logits_softcap: float = 0.0
     tie_embeddings: bool = False
     attention_fn: Optional[Callable] = None
-    # the serving (KV-cache) path is not ported yet; True raises
+    # decode=True marks a config for the KV-cache path (what selects the
+    # path here is the cache passed to Decoder.forward); paged=True (decode
+    # only) stores K/V in a pool of num_pages pages of page_size tokens,
+    # mapped per row by a page table (see KVCache)
     decode: bool = False
     paged: bool = False
+    page_size: int = 64
+    num_pages: int = 0
+    # KV-cache read chunk, rounded down to a divisor of max_seq_len at use
+    decode_chunk: int = 256
     # components gated to zero for LOCO ablation (see _parse_ablated)
     ablated: Any = frozenset()
 
@@ -109,8 +131,6 @@ class DecoderConfig:
         return self.d_model // self.n_heads
 
     def __post_init__(self):
-        if self.decode or self.paged:
-            raise NotImplementedError("serving slice not ported yet")
         if self.d_model % self.n_heads:
             raise ValueError("d_model must be divisible by n_heads")
         if self.n_heads % self.n_kv_heads:
@@ -124,6 +144,21 @@ class DecoderConfig:
                 f"remat_policy {self.remat_policy!r} is not ported yet; "
                 f"use one of {REMAT_POLICIES}"
             )
+        if self.paged:
+            if not self.decode:
+                raise ValueError("paged=True requires decode=True")
+            p = self.page_size
+            if p < 1 or (p & (p - 1)):
+                raise ValueError(f"page_size must be a power of two, got {p}")
+            if self.max_seq_len % p:
+                raise ValueError(
+                    f"page_size ({p}) must divide max_seq_len ({self.max_seq_len})"
+                )
+            if self.num_pages < 2:
+                raise ValueError(
+                    "paged=True needs num_pages >= 2 (page 0 is the reserved "
+                    f"scratch page), got {self.num_pages}"
+                )
         object.__setattr__(self, "ablated", frozenset(self.ablated))
         _parse_ablated(self.ablated, self.n_layers)  # validate eagerly
 
@@ -149,6 +184,7 @@ class DecoderConfig:
                     n_kv_heads=8,
                     d_ff=14_336,
                     rope_theta=500_000.0,
+                    max_seq_len=8192,
                     remat=True,
                     remat_policy="nothing",
                 ),
@@ -168,6 +204,7 @@ class DecoderConfig:
                     n_heads=4,
                     n_kv_heads=2,
                     d_ff=128,
+                    max_seq_len=128,
                 ),
                 **overrides,
             }
@@ -259,7 +296,9 @@ class Attention(nn.Module):
         self.wv = Dense(cfg.d_model, cfg.n_kv_heads * hd, cfg, device)
         self.wo = Dense(cfg.n_heads * hd, cfg.d_model, cfg, device)
 
-    def forward(self, x, positions, segment_ids=None):
+    def forward(self, x, positions, segment_ids=None, kv=None):
+        """``kv``: ``(step, layer)`` on the cache path — the forward's
+        :class:`_CacheStep` and this layer's index into its cache."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
@@ -268,9 +307,175 @@ class Attention(nn.Module):
         v = self.wv(x).view(b, s, cfg.n_kv_heads, hd)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        attn = cfg.attention_fn or auto_attention
-        out = attn(q, k, v, causal=True, segment_ids=segment_ids)
+        if kv is not None:
+            step, layer = kv
+            cached = _paged_cached_attention if step.paged else _cached_attention
+            out = cached(step, layer, q, k, v)
+        else:
+            attn = cfg.attention_fn or auto_attention
+            out = attn(q, k, v, causal=True, segment_ids=segment_ids)
         return self.wo(out.reshape(b, s, cfg.n_heads * hd))
+
+
+@dataclasses.dataclass
+class KVCache:
+    """The decode path's cache for every layer, updated in place by
+    ``Decoder.forward(..., cache=...)``; :func:`maggy_tpu_torch.models.
+    generate.init_cache` makes one.
+
+    * dense: ``k``/``v`` ``[L, B, max_seq_len, Kh, D]``, one row per batch row;
+    * paged: ``k``/``v`` ``[L, num_pages, page_size, Kh, D]``, a pool any row
+      may use, and ``pages`` ``[B, max_seq_len/page_size]`` int32, row b's
+      logical page j -> physical page. Page 0 is scratch: unassigned entries
+      point at it and masked writes land there, never read as valid;
+    * both: ``index`` ``[B]`` int32, each row's cache length (its next write
+      offset), and, for packed prompts (dense only), ``seg`` ``[B,
+      max_seq_len]`` int32, the segment id of every cached position.
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    index: torch.Tensor
+    pages: Optional[torch.Tensor] = None
+    seg: Optional[torch.Tensor] = None
+
+    @property
+    def paged(self) -> bool:
+        return self.pages is not None
+
+    def row(self, b: int) -> "KVCache":
+        """Row ``b`` as a one-row cache of views: a forward through it writes
+        this cache (the pool itself, in paged mode)."""
+        one = slice(b, b + 1)
+        if self.paged:
+            return KVCache(self.k, self.v, self.index[one], self.pages[one])
+        return KVCache(self.k[:, one], self.v[:, one], self.index[one],
+                       seg=None if self.seg is None else self.seg[one])
+
+
+def _read_chunk(decode_chunk: int, s: int) -> int:
+    """The cache read chunk: ``decode_chunk`` rounded down to a divisor of
+    the cache length ``s`` (a chunk never runs past the end), the whole
+    cache for pathological lengths."""
+    chunk = min(decode_chunk, s)
+    while s % chunk:
+        chunk //= 2
+    return s if chunk < 16 else chunk
+
+
+class _CacheStep:
+    """What every layer's cache write and read share within one forward,
+    computed once: where this forward's K/V land and, for each chunk the
+    read covers, its mask (and page ids, paged).
+
+    Clamps reproduce JAX's: a dense row write starts at ``min(index, S - t)``
+    (``dynamic_update_slice`` shifts an update to fit), the packed track's
+    continuation reads position ``clip(index - 1, 0, S - 1)``, a paged write's
+    logical page is clipped to the row's last, and the read covers at most
+    the whole cache."""
+
+    def __init__(self, cfg, cache: KVCache, positions, segment_ids, kv_len: Optional[int]):
+        b, t = positions.shape
+        # the geometry is the cache's own: one module serves any cache
+        p = cache.k.shape[2]
+        s = cache.pages.shape[1] * p if cache.paged else p
+        if t > s:
+            raise ValueError(f"{t} tokens do not fit a cache of max_seq_len {s}")
+        dev = cache.index.device
+        idx = cache.index.long()  # [B] write offsets before this forward
+        ar = torch.arange(t, device=dev)
+        written = idx + t  # [B] cache lengths after it
+        self.paged = cache.paged
+        self.k, self.v = cache.k, cache.v
+        self.scale = 1.0 / cfg.head_dim**0.5
+        chunk = _read_chunk(cfg.decode_chunk, s)
+        if kv_len is None:
+            kv_len = int(written.max())  # a device read: callers that know it pass it
+        w_row = written[:, None, None, None]
+        if self.paged:
+            if segment_ids is not None or cache.seg is not None:
+                raise NotImplementedError("paged decode does not support packed segment_ids")
+            max_pages = s // p
+            pos_w = idx[:, None] + ar[None, :]
+            page_slot = torch.clamp(pos_w // p, 0, max_pages - 1)
+            self.write_at = (torch.gather(cache.pages.long(), 1, page_slot), pos_w % p)
+            cpp = max(1, chunk // p)  # pages per chunk
+            chunk = cpp * p
+            n_valid = min(-(-kv_len // chunk), max_pages // cpp)
+            self.chunk_pages = [cache.pages[:, ci * cpp:(ci + 1) * cpp].long() for ci in range(n_valid)]
+        else:
+            start = torch.clamp(idx, 0, s - t)
+            self.write_at = (torch.arange(b, device=dev)[:, None].expand(b, t), start[:, None] + ar[None, :])
+            n_valid = min(-(-kv_len // chunk), s // chunk)
+        self.chunk = chunk
+        seg_all = seg_q = None
+        if segment_ids is not None or cache.seg is not None:
+            # packed: the segment-id track, written once for every layer
+            if cache.seg is None:
+                cache.seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+            if segment_ids is None:
+                # continuation: the new token(s) extend the row's last segment
+                last = torch.gather(cache.seg, 1, torch.clamp(idx - 1, 0, s - 1)[:, None])
+                seg_q = last.expand(b, t)
+            else:
+                seg_q = segment_ids.to(torch.int32)
+            cache.seg[self.write_at] = seg_q
+            seg_all = cache.seg
+            qslot = idx[:, None] + ar[None, :]  # a query's own cache slot: the causal clock
+        self.masks = []
+        for ci in range(n_valid):
+            kpos = ci * chunk + torch.arange(chunk, device=dev)
+            if seg_all is None:
+                # causal over the cache (positions == cache slots here) and
+                # only what has been written
+                mask = (kpos[None, None, None, :] <= positions[:, None, :, None]) & (kpos < w_row)
+            else:
+                # packed: causal in cache order, within the query's segment
+                seg_c = seg_all[:, ci * chunk:(ci + 1) * chunk]
+                mask = ((kpos[None, None, None, :] <= qslot[:, None, :, None]) & (kpos < w_row)
+                        & (seg_c[:, None, None, :] == seg_q[:, None, :, None]))
+            self.masks.append(mask)
+
+
+def _cached_attention(step: _CacheStep, layer: int, q, k, v):
+    """Incremental decoding over a dense cache (``_cached_attention`` of the
+    JAX package): append this call's K/V at each row's own write index, then
+    attend its queries over the row's cache in chunks, online softmax across
+    chunks. Rows may sit at different positions (slot-based batching)."""
+    b, t, kh, hd = k.shape
+    h = q.shape[2]
+    k_all, v_all = step.k[layer], step.v[layer]
+    k_all[step.write_at] = k.to(k_all.dtype)
+    v_all[step.write_at] = v.to(v_all.dtype)
+    c = step.chunk
+    carry = ops_attn.init_carry(b, h, t, hd, device=q.device)
+    for ci, mask in enumerate(step.masks):
+        k_c, v_c = k_all[:, ci * c:(ci + 1) * c], v_all[:, ci * c:(ci + 1) * c]
+        carry = ops_attn.online_block_update(
+            carry, q, ops_attn.repeat_kv(k_c, h), ops_attn.repeat_kv(v_c, h), mask, step.scale)
+    acc, _, l = carry
+    return ops_attn.finalize(acc, l, q.dtype)
+
+
+def _paged_cached_attention(step: _CacheStep, layer: int, q, k, v):
+    """The same over a paged cache (``_paged_cached_attention`` of the JAX
+    package): each new token scatters to ``(pages[b, pos // P], pos % P)``;
+    each chunk gathers its pages into a contiguous block of the dense path's
+    chunk length, so whenever ``page_size`` divides the chunk the result is
+    bit-identical to the dense path's."""
+    b, t, kh, hd = k.shape
+    h = q.shape[2]
+    k_pool, v_pool = step.k[layer], step.v[layer]
+    k_pool[step.write_at] = k.to(k_pool.dtype)
+    v_pool[step.write_at] = v.to(v_pool.dtype)
+    carry = ops_attn.init_carry(b, h, t, hd, device=q.device)
+    for pages, mask in zip(step.chunk_pages, step.masks):
+        k_c = k_pool[pages].reshape(b, step.chunk, kh, hd)
+        v_c = v_pool[pages].reshape(b, step.chunk, kh, hd)
+        carry = ops_attn.online_block_update(
+            carry, q, ops_attn.repeat_kv(k_c, h), ops_attn.repeat_kv(v_c, h), mask, step.scale)
+    acc, _, l = carry
+    return ops_attn.finalize(acc, l, q.dtype)
 
 
 class MLPBlock(nn.Module):
@@ -294,10 +499,11 @@ class DecoderLayer(nn.Module):
         self.mlp_norm = RMSNorm(cfg, device)
         self.mlp = MLPBlock(cfg, device)
 
-    def forward(self, x, positions, gates=None, segment_ids=None):
+    def forward(self, x, positions, gates=None, segment_ids=None, kv=None):
         """``gates``: optional [2] float (attn, mlp) LOCO gates; a zero gate
-        removes that sublayer's contribution and cuts its gradients."""
-        a = self.attn(self.attn_norm(x), positions, segment_ids)
+        removes that sublayer's contribution and cuts its gradients. ``kv``:
+        the cache path's ``(step, layer)``."""
+        a = self.attn(self.attn_norm(x), positions, segment_ids, kv)
         x = x + (a if gates is None else a * gates[0].to(a.dtype))
         m = self.mlp(self.mlp_norm(x))
         return x + (m if gates is None else m * gates[1].to(m.dtype))
@@ -335,21 +541,44 @@ class Decoder(nn.Module):
             elif isinstance(mod, RMSNorm):
                 mod.scale.fill_(1.0)
 
-    def forward(self, tokens, positions=None, segment_ids=None):
+    def forward(self, tokens, positions=None, segment_ids=None, cache: Optional[KVCache] = None,
+                kv_len: Optional[int] = None):
         """``positions`` default to per-row arange; packed batches pass both
-        ``positions`` (restarting per segment) and ``segment_ids`` [B, S]."""
-        cfg = self.cfg
+        ``positions`` (restarting per segment) and ``segment_ids`` [B, S].
+
+        With ``cache`` this is the decode path (no gradients): the tokens'
+        K/V are appended to the cache at each row's index, which then moves
+        on by the token count, and every query attends over its row's
+        cache. ``kv_len`` is a host-known bound on the longest row's cache
+        length after this write (``index + t``); without it the bound is
+        read from the device. Later single-token calls of a packed cache may
+        omit ``segment_ids``: the token extends its row's last segment."""
+        if cache is not None:
+            if positions is None:
+                raise ValueError("the cache path needs explicit positions")
+            with torch.no_grad():
+                step = _CacheStep(self.cfg, cache, positions, segment_ids, kv_len)
+                logits = self._forward(tokens, positions, None, step)
+                cache.index.add_(tokens.shape[1])
+            return logits
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+        return self._forward(tokens, positions, segment_ids, None)
+
+    def _forward(self, tokens, positions, segment_ids, step):
+        cfg = self.cfg
         # gather-then-cast: the same values as casting the table first
         # (flax's jnp.asarray(embed, dtype)[tokens]) without a bf16 table copy
         x = F.embedding(tokens, self.embedding).to(cfg.dtype)
-        recompute = cfg.remat and cfg.remat_policy == "nothing"
+        # no gradients (hence no remat) on the cache path
+        recompute = cfg.remat and cfg.remat_policy == "nothing" and step is None
         all_gates = None if self._gates is None else torch.from_numpy(self._gates).to(x.device)
         for i, layer in enumerate(self.layers):
             gates = None if all_gates is None else all_gates[i]
             if recompute:
                 x = checkpoint(layer, x, positions, gates, segment_ids, use_reentrant=False)
+            elif step is not None:
+                x = layer(x, positions, gates, None, (step, i))
             else:
                 x = layer(x, positions, gates, segment_ids)
         x = self.final_norm(x)

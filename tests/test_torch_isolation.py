@@ -36,6 +36,7 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
         "import maggy_tpu_torch.models, maggy_tpu_torch.train, maggy_tpu_torch.convert\n"
         "import maggy_tpu_torch.util, maggy_tpu_torch.ops.ring_flash\n"
         "import maggy_tpu_torch.parallel, maggy_tpu_torch.parallel.spec\n"
+        "import maggy_tpu_torch.serve, maggy_tpu_torch.models.generate, maggy_tpu_torch.telemetry\n"
         "from maggy_tpu_torch.ops import _build\n"
         "print(sorted(sys.modules))\n"
         "print(len(_build._libs), 'triton' in sys.modules)\n"
@@ -48,7 +49,7 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
     ).stdout.splitlines()
     modules = ast.literal_eval(out[0])
     assert [m for m in modules if _forbidden(m)] == []
-    assert "maggy_tpu_torch.train" in modules
+    assert "maggy_tpu_torch.train" in modules and "maggy_tpu_torch.serve.engine" in modules
     assert out[1] == "0 False"  # no kernel library loaded, no triton
 
 
@@ -92,6 +93,17 @@ def test_trainer_and_model_need_cuda_unless_told(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(Decoder(cfg, device="meta"), adamw(1e-3), device="cuda")
     Trainer(Decoder(cfg, device="meta"), adamw(1e-3), device="cpu")  # asked for: fine
+
+
+def test_engine_needs_cuda_unless_told(no_cuda):
+    from maggy_tpu_torch.models import Decoder, DecoderConfig
+    from maggy_tpu_torch.serve import Engine
+
+    cfg = DecoderConfig.tiny(dtype=torch.float32)
+    weights = Decoder(cfg, device="cpu").state_dict()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(cfg, weights)
+    Engine(cfg, weights, num_slots=1, device="cpu")  # asked for: fine
 
 
 def test_flash_kernels_raise_without_cuda(no_cuda):

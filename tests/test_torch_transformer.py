@@ -157,9 +157,21 @@ def test_config_surface():
             cfg.d_ff, cfg.rope_theta, cfg.remat, cfg.remat_policy) == (
         128_256, 4096, 32, 8, 128, 14_336, 5e5, True, "nothing")
     assert cfg.dtype == torch.bfloat16 and cfg.param_dtype == torch.float32
-    for flag in ("decode", "paged"):
-        with pytest.raises(NotImplementedError, match="serving slice"):
-            tt.DecoderConfig.tiny(**{flag: True})
+    # the serving fields and their validation are the JAX config's
+    assert (tt.DecoderConfig().max_seq_len, cfg.max_seq_len, tt.DecoderConfig.tiny().max_seq_len) == (
+        2048, 8192, 128)
+    d = tt.DecoderConfig()
+    assert (d.page_size, d.num_pages, d.decode_chunk) == (64, 0, 256)
+    assert tt.DecoderConfig.tiny(decode=True).decode
+    tt.DecoderConfig.tiny(decode=True, paged=True, page_size=16, num_pages=9)
+    for kw, msg in ((dict(paged=True, num_pages=9), "requires decode"),
+                    (dict(decode=True, paged=True, page_size=24, num_pages=9), "power of two"),
+                    (dict(decode=True, paged=True, page_size=256, num_pages=9), "must divide"),
+                    (dict(decode=True, paged=True, page_size=16, num_pages=1), "num_pages >= 2")):
+        with pytest.raises(ValueError, match=msg):
+            tt.DecoderConfig.tiny(**kw)
+        with pytest.raises(ValueError, match=msg):
+            jt.DecoderConfig.tiny(**kw)
     for policy in ("dots", "dots_attn"):
         with pytest.raises(NotImplementedError):
             tt.DecoderConfig.tiny(remat=True, remat_policy=policy)
@@ -168,7 +180,8 @@ def test_config_surface():
     tfields = {f.name for f in dataclasses.fields(tt.DecoderConfig)}
     assert {"vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads", "d_ff",
             "rope_theta", "norm_eps", "remat", "remat_policy", "logits_softcap",
-            "tie_embeddings", "attention_fn", "ablated", "scan_layers"} <= jfields & tfields
+            "tie_embeddings", "attention_fn", "ablated", "scan_layers", "max_seq_len",
+            "decode", "paged", "page_size", "num_pages", "decode_chunk"} <= jfields & tfields
 
 
 @pytest.mark.parametrize("policy", ["nothing", "everything"])

@@ -69,6 +69,24 @@ Phases, each printing one line:
             ``serve.engine.times``: prefill per bucket, a decode step with
             every slot busy beside its bound, and the device's busy share
             over it (torch.profiler).
+11. lagom.train  the ``train`` configuration as the train_fn of the port's
+            ``lagom``: ``HyperparameterOptConfig(num_trials=2,
+            optimizer="randomsearch", seed=0)`` over ``lr`` in [1e-5, 1e-4],
+            no ``device``, so each executor leases a card and makes it
+            current. Each trial builds the model on its lease, takes a
+            warm-up step and 4 ``Trainer.fit`` steps at B=2, S=2048. It fails
+            unless both trials finish without error, each returned metric
+            is its last broadcast, every loss is finite, each trial ran on
+            its lease (current device and every parameter), the flash
+            kernels launched 2 x (1 + 4) x the ``train`` step's count, no
+            executor thread is left, each leased card's memory is back
+            within 1 GiB and the phase's peak is within 2 GiB of one
+            trial's (trials in turn on one card do not stack up). With two
+            or more cards the trials run at once on disjoint cards. Each
+            trial's step time (``fit``'s wall over its steps, as in
+            ``train``) stands beside the ``train`` phase's, with the gaps
+            between broadcasts and their median as a side figure, and the
+            study's wall time beside the union of the ``train_fn`` windows.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
@@ -150,6 +168,11 @@ PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 # 0.72 (median) to 0.92. The limit sits between: 1.7x the yardstick's worst
 # row, and the fault must exceed it at its median row, not only its worst
 TOL_SERVE_LOGITS_REL_L2 = 1e-1
+# lagom.train: the `train` configuration as the train_fn of an HPO study of
+# LAGOM_TRIALS trials, LAGOM_STEPS steps each after a warm-up step
+LAGOM_TRIALS = 2
+LAGOM_STEPS = 4
+LAGOM_HB = 0.5
 # H100 SXM dense peaks (NVIDIA data sheet, 700 W)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -454,6 +477,15 @@ def phase_model(torch, n_layers: int, seq: int):
     torch.cuda.empty_cache()
 
 
+def flash_launches_per_step(n_layers: int) -> dict:
+    """What one train step of ``Decoder(llama3_8b(n_layers))`` launches."""
+    return {
+        "flash_fwd": 2 * n_layers,  # forward, and again under remat
+        "flash_bwd_dq": n_layers,
+        "flash_bwd_dkv": n_layers,
+    }
+
+
 def phase_train(torch, n_layers: int, seq: int, steps: int, card: str, profile: bool):
     from maggy_tpu_torch.models import Decoder, DecoderConfig
     from maggy_tpu_torch.ops import flash
@@ -477,11 +509,7 @@ def phase_train(torch, n_layers: int, seq: int, steps: int, card: str, profile: 
     state, metrics = trainer.fit(state, data, steps, reporter=Record(), report_every=1, metrics_window=0)
     torch.cuda.synchronize()
     launches = dict(flash.LAUNCHES)
-    expected = {
-        "flash_fwd": 2 * n_layers * steps,  # forward, and again under remat
-        "flash_bwd_dq": n_layers * steps,
-        "flash_bwd_dkv": n_layers * steps,
-    }
+    expected = {k: v * steps for k, v in flash_launches_per_step(n_layers).items()}
     finite = all(math.isfinite(v) for _, v in losses)
     ok = finite and len(losses) == steps and launches == expected
     step_ms = 1e3 / metrics["steps_per_sec"]
@@ -496,7 +524,7 @@ def phase_train(torch, n_layers: int, seq: int, steps: int, card: str, profile: 
         raise SystemExit(f"train phase failed: losses {losses}, launches {launches} != {expected}")
     if profile:
         profile_steps(torch, trainer, state, data, card, step_ms)
-    return launches
+    return launches, step_ms
 
 
 def ring_chunks(torch, gen, packed: bool):
@@ -1359,6 +1387,137 @@ def serve_engine_times(torch, engine, requests, card, timed_steps, profiled_step
     del engine
 
 
+def phase_lagom_train(torch, cfg, seq: int, steps: int, card: str, train_step_ms):
+    """Phase 11: LAGOM_TRIALS HPO trials of the ``train`` configuration under
+    the port's ``lagom``, each on the card its executor leased."""
+    import gc
+    import statistics
+    import tempfile
+    import threading
+
+    from maggy_tpu_torch import Searchspace, experiment
+    from maggy_tpu_torch.config import HyperparameterOptConfig
+    from maggy_tpu_torch.core import env as env_mod
+    from maggy_tpu_torch.core.env.base import BaseEnv
+    from maggy_tpu_torch.models import Decoder
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.train import Trainer, adamw, synthetic_lm_batches
+
+    cards = range(torch.cuda.device_count())
+    trials, lock = [], threading.Lock()
+
+    def train_fn(hparams, reporter, devices):
+        dev = devices[0]
+        rec = dict(lease=str(dev), lr=hparams["lr"], t0=time.perf_counter(),
+                   start_bytes=torch.cuda.memory_allocated(dev), before_peak=torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer = Trainer(Decoder(cfg, device="meta"), adamw(hparams["lr"]), device=dev)
+        data = synthetic_lm_batches(cfg.vocab_size, B, seq, seed=0)
+        state = trainer.make_state(0, next(data))
+        rec["current"] = str(torch.device("cuda", torch.cuda.current_device()))
+        rec["params_on_lease"] = all(p.device == dev for p in state.model.parameters())
+        state, _ = trainer.step(state, next(data))  # warm-up, as in `train`
+        broadcasts = []
+
+        class Record:
+            """The trial's reporter, with the host clock read at each
+            broadcast (each follows a step's loss read, which waits for the
+            card): the gaps are a side figure beside ``fit``'s mean step."""
+
+            def broadcast(self, value, step):
+                broadcasts.append((time.perf_counter(), value))
+                reporter.broadcast(value, step=step)
+
+        torch.cuda.synchronize(dev)
+        t_fit = time.perf_counter()
+        state, metrics = trainer.fit(state, data, steps, reporter=Record(), report_every=1, metrics_window=0)
+        marks = [t_fit] + [t for t, _ in broadcasts]
+        each_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+        # the ratio's step is the `train` phase's statistic: fit's wall time
+        # over its steps, a mean that keeps a stall in
+        rec.update(losses=[v for _, v in broadcasts], metric=metrics["loss"],
+                   step_ms=1e3 / metrics["steps_per_sec"], step_ms_each=each_ms,
+                   step_ms_median=statistics.median(each_ms), t1=time.perf_counter(),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+        with lock:
+            trials.append(rec)
+        return {"metric": metrics["loss"]}
+
+    gc.collect()
+    torch.cuda.init()  # every card's allocator, before its stats are read or reset
+    torch.cuda.empty_cache()
+    base = {i: torch.cuda.memory_allocated(i) for i in cards}
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    cfg_hpo = HyperparameterOptConfig(
+        num_trials=LAGOM_TRIALS, optimizer="randomsearch", seed=0,
+        searchspace=Searchspace(lr=("DOUBLE", [1e-5, 1e-4])), direction="min",
+        es_policy="none", hb_interval=LAGOM_HB,
+    )
+    flash.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="lagom_train_") as root:
+        env_mod.set_instance(BaseEnv(root))  # logs in a temporary root, never the repo
+        try:
+            t0 = time.perf_counter()
+            result = experiment.lagom(train_fn, cfg_hpo)
+            wall_s = time.perf_counter() - t0
+        finally:
+            env_mod.set_instance(None)
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    expected = {k: LAGOM_TRIALS * (1 + steps) * v for k, v in flash_launches_per_step(cfg.n_layers).items()}
+    left = [t.name for t in threading.enumerate() if t.name.startswith("maggy-executor")]
+
+    trials.sort(key=lambda r: r["t0"])
+    by_metric = sorted(r["metric"] for r in trials)
+    leased = sorted({r["lease"] for r in trials})
+    checks = {
+        "two_trials_no_error": result["num_trials"] == LAGOM_TRIALS and result["errors"] == 0
+        and len(trials) == LAGOM_TRIALS,
+        "metric_is_last_broadcast": all(r["losses"] and r["metric"] == r["losses"][-1] for r in trials)
+        and sorted([result["best"]["metric"], result["worst"]["metric"]]) == [by_metric[0], by_metric[-1]],
+        "losses_finite": all(math.isfinite(v) for r in trials for v in r["losses"]),
+        "on_lease": all(r["current"] == r["lease"] and r["params_on_lease"] for r in trials),
+        "launches": launches == expected,
+        "no_executor_left": not left,
+    }
+    concurrent = len(cards) >= 2
+    if concurrent:  # two executors, disjoint cards, overlapping windows
+        checks["concurrent"] = len(leased) == LAGOM_TRIALS and max(r["t0"] for r in trials) < min(
+            r["t1"] for r in trials)
+    gib = 2**30
+    after = {i: torch.cuda.memory_allocated(i) for i in cards}
+    # a card's peak over the phase: its peak before each trial's reset, and
+    # since the last one
+    phase_peak = {i: max([torch.cuda.max_memory_allocated(i)] + [
+        r["before_peak"] for r in trials if r["lease"] == f"cuda:{i}"]) - base[i] for i in cards}
+    trial_peak = max(r["peak_bytes"] - r["start_bytes"] for r in trials)
+    lease_ids = [int(s.split(":")[1]) for s in leased]
+    checks["memory_back"] = all(abs(after[i] - base[i]) <= gib for i in lease_ids)
+    checks["trials_do_not_stack"] = max(phase_peak.values()) <= trial_peak + 2 * gib
+    # the time some train_fn ran: the union of the trials' windows (sorted by
+    # start), which overlap when trials run at once
+    fn_s, reach = 0.0, -math.inf
+    for r in trials:
+        fn_s += max(0.0, r["t1"] - max(r["t0"], reach))
+        reach = max(reach, r["t1"])
+    ok = all(checks.values())
+    emit(
+        "lagom.train", ok=ok, checks=checks, concurrent=concurrent, leases=leased,
+        trials=[dict(lease=r["lease"], lr=r["lr"], losses=r["losses"], metric=r["metric"],
+                     step_ms=r["step_ms"], step_ms_each=r["step_ms_each"], step_ms_median=r["step_ms_median"],
+                     ratio_to_train_step=None if train_step_ms is None else r["step_ms"] / train_step_ms,
+                     train_fn_s=r["t1"] - r["t0"]) for r in trials],
+        train_step_ms=train_step_ms, wall_s=wall_s, train_fn_union_s=fn_s, wall_minus_train_fn_s=wall_s - fn_s,
+        launches=launches, expected=expected,
+        memory_after_minus_before_gib={i: (after[i] - base[i]) / gib for i in lease_ids},
+        peak_gib=max(phase_peak.values()) / gib, trial_peak_gib=trial_peak / gib, card=card,
+    )
+    if not ok:
+        raise SystemExit(f"lagom.train failed: {[k for k, v in checks.items() if not v]}")
+    return launches
+
+
 def _category(name: str) -> str:
     low = name.lower()
     # the three attention kernels, whether a flash or a ring wrapper launched them
@@ -1446,7 +1605,7 @@ def main(argv=None) -> int:
 
     rows = phase_kernels(torch)
     phase_model(torch, N_LAYERS, S)
-    launches = phase_train(torch, N_LAYERS, S, TRAIN_STEPS, card, args.profile)
+    launches, train_step_ms = phase_train(torch, N_LAYERS, S, TRAIN_STEPS, card, args.profile)
     rows.update(phase_ring_kernels(torch))
     phase_ring_model(torch, N_LAYERS, RING_S)
     ring_launches = phase_ring_train(torch, N_LAYERS, RING_S, TRAIN_STEPS, card, args.profile)
@@ -1467,6 +1626,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_serve_engine(torch, master, card, engine_requests(torch, master.cfg))
     del master
+    # the HPO control plane on top: the `train` configuration as two trials
+    phase_lagom_train(torch, DecoderConfig.llama3_8b(n_layers=N_LAYERS), S, LAGOM_STEPS, card, train_step_ms)
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=TPU_KERNELS[name],

@@ -1,5 +1,5 @@
-"""Weights of the JAX package's ``Decoder`` as a PyTorch ``state_dict``, and
-its decode cache as the port's ``KVCache``.
+"""Weights of the JAX package's ``Decoder`` and ``MLP`` as PyTorch
+``state_dict``s, and its decode cache as the port's ``KVCache``.
 
 The JAX tree is taken as numpy arrays (``jax.device_get`` of the params, or
 of ``{"params": ...}``), with its flax partitioning boxes either unboxed or
@@ -103,3 +103,15 @@ def kv_cache_from_flax(cache_np: Dict[str, Any], cfg, device="cpu"):
         k=tensor("k", cfg.dtype), v=tensor("v", cfg.dtype), index=first_layer("index"),
         pages=first_layer("pages"), seg=first_layer("seg"),
     )
+
+
+def mlp_params_from_flax(params_np: Dict[str, Any], features_count: int) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for ``maggy_tpu_torch.models.MLP`` from the JAX ``MLP``'s
+    params (``dense_0 .. dense_{features_count-1}`` and ``head``, each a flax
+    ``Dense`` with an ``[in, out]`` kernel and a bias)."""
+    tree = params_np.get("params", params_np)
+    out: Dict[str, torch.Tensor] = {}
+    for name in [f"dense_{i}" for i in range(features_count)] + ["head"]:
+        out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(_arr(tree[name]["kernel"]).T))
+        out[f"{name}.bias"] = torch.from_numpy(np.array(_arr(tree[name]["bias"])))
+    return out

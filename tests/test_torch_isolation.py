@@ -37,6 +37,8 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
         "import maggy_tpu_torch.util, maggy_tpu_torch.ops.ring_flash\n"
         "import maggy_tpu_torch.parallel, maggy_tpu_torch.parallel.spec\n"
         "import maggy_tpu_torch.serve, maggy_tpu_torch.models.generate, maggy_tpu_torch.telemetry\n"
+        "import maggy_tpu_torch.experiment, maggy_tpu_torch.core.driver.hpo, maggy_tpu_torch.core.rpc\n"
+        "import maggy_tpu_torch.optimizer, maggy_tpu_torch.telemetry.recorder, maggy_tpu_torch.models.mlp\n"
         "from maggy_tpu_torch.ops import _build\n"
         "print(sorted(sys.modules))\n"
         "print(len(_build._libs), 'triton' in sys.modules)\n"

@@ -25,8 +25,9 @@ Phases, each printing one line:
             ``default_attention``, with the plain version, and with a
             planted fault that the logits limit must catch.
 4. train    ``Trainer.fit`` for a few AdamW steps at B=2, S=2048 on
-            synthetic batches: every loss finite, and each kernel launched
-            exactly as often as the layers and remat demand.
+            synthetic batches, through fit's prefetcher (depth 2), after a
+            one-step warm-up fit: every loss finite, and each kernel
+            launched exactly as often as the layers and remat demand.
 5. ring.kernels  each ring step kernel (forward, dQ, dK/dV) against its plain
             version at one rank's shapes of the ring below (B=1, C=2048,
             H=32, Kh=8, D=128): the diagonal step, a past step, the
@@ -87,8 +88,32 @@ Phases, each printing one line:
             ``train``) stands beside the ``train`` phase's, with the gaps
             between broadcasts and their median as a side figure, and the
             study's wall time beside the union of the ``train_fn`` windows.
+12. train.resume  the ``train`` configuration from disk: seeded tokens
+            written by ``write_sharded`` into a temporary directory, read
+            through ``ShardedDataset`` and the native batcher (it must be
+            native) into ``fit``'s prefetcher (depth 2). Run A takes 8
+            steps; run B, from the same seed, checkpoints every 4 steps
+            (``Checkpointer(max_to_keep=1)``) and gets a preemption notice
+            from its reporter after step 5: an async save at 4, the
+            synchronous save at 5, ``preempted=1.0``; run C, from another
+            seed, calls ``fit(num_steps=8, resume="auto")``. Steps 6-8 of C
+            must equal A's losses bit for bit and the final parameters A's
+            (an exact checksum per tensor); the flash launches exact; the
+            card's memory back within 1 GiB and the phase's peak within
+            2 GiB of the ``train`` phase's (nothing staged on the card). It
+            fails, before running, when the disk holds less than two
+            checkpoints. It prints the bytes a checkpoint, each save's
+            blocked and commit time, the restore time, the step through
+            the prefetcher and ``input_wait_ms``.
+13. train.remat  one forward and backward of the ``train`` configuration on
+            one batch under ``remat=False``, ``"nothing"``, ``"dots"`` and
+            ``"dots_attn"``, from the same parameters, gradients cleared
+            between them: the loss and every gradient equal to
+            ``remat=False``'s bit for bit, flash forward launches 4 / 8 / 8 /
+            4 and backward 4 + 4 under each; each policy's time and peak.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+Then a ``{"kernels": [...]}`` line (each kernel's launches: those of
+``train``, ``ring.train``, ``train.resume`` and ``train.remat``), the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before that line. With no CUDA it exits non-zero at once.
 """
@@ -173,6 +198,18 @@ TOL_SERVE_LOGITS_REL_L2 = 1e-1
 LAGOM_TRIALS = 2
 LAGOM_STEPS = 4
 LAGOM_HB = 0.5
+# train.resume: the `train` configuration from ROWS rows of tokens written as
+# SHARDS shards; run A takes STEPS steps, run B checkpoints every EVERY steps
+# until a preemption notice after step NOTICE, run C resumes it. A checkpoint
+# is the fp32 parameters and both AdamW moments, 12 bytes a parameter
+RESUME_STEPS = 8
+RESUME_EVERY = 4
+RESUME_NOTICE = 5
+RESUME_ROWS = 64
+RESUME_SHARDS = 4
+RESUME_DATA_SEED = 7
+# train.remat: each setting in turn, remat=False first (the reference)
+REMAT_ORDER = ((False, "nothing"), (True, "nothing"), (True, "dots"), (True, "dots_attn"))
 # H100 SXM dense peaks (NVIDIA data sheet, 700 W)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -487,6 +524,7 @@ def flash_launches_per_step(n_layers: int) -> dict:
 
 
 def phase_train(torch, n_layers: int, seq: int, steps: int, card: str, profile: bool):
+    from maggy_tpu_torch import telemetry
     from maggy_tpu_torch.models import Decoder, DecoderConfig
     from maggy_tpu_torch.ops import flash
     from maggy_tpu_torch.train import Trainer, adamw, synthetic_lm_batches
@@ -502,13 +540,39 @@ def phase_train(torch, n_layers: int, seq: int, steps: int, card: str, profile: 
         def broadcast(self, value, step):
             losses.append((step, value))
 
-    state, _ = trainer.step(state, next(data))  # warm-up: first-call set-up stays out of the times
+    # warm-up: first-call set-up stays out of the times. It is a one-step
+    # fit, so the prefetcher's one-time set-up in this process (its thread's
+    # first CUDA stream makes PyTorch build its stream pool) is paid here;
+    # its wait for that first batch is reported beside the steps
+    warm = telemetry.Telemetry(worker="train.warmup")
+    with telemetry.current(warm):
+        state, _ = trainer.fit(state, data, 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash.reset_launches()
-    state, metrics = trainer.fit(state, data, steps, reporter=Record(), report_every=1, metrics_window=0)
+
+    def timed_fit(name, depth):
+        """One fit of ``steps`` steps at prefetch ``depth``, each under its
+        own recorder and with the same reporter settings (every step's loss
+        read), so the fits differ in the prefetcher alone. (A fit with no
+        recorder in scope records into the process's default one, so
+        telemetry is on either way.)"""
+        rec = telemetry.Telemetry(worker=name)
+        with telemetry.current(rec):
+            out = trainer.fit(state, data, steps, reporter=Record(), report_every=1, metrics_window=0,
+                              prefetch=depth)
+        return out, gauge_values(rec.drain_events(), "input_wait_ms")
+
+    # the timed fit, through fit's default prefetch (depth 2)
+    (state, metrics), input_wait = timed_fit("train", None)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(flash.LAUNCHES)
+    # the same fit without the prefetcher, then with it again: its cost
+    # within this call
+    (_, sync), _ = timed_fit("train.sync", 0)
+    (_, again), again_wait = timed_fit("train.prefetch_again", 2)
+    del losses[steps:]  # the turns' broadcasts; the timed fit's are checked
     expected = {k: v * steps for k, v in flash_launches_per_step(n_layers).items()}
     finite = all(math.isfinite(v) for _, v in losses)
     ok = finite and len(losses) == steps and launches == expected
@@ -517,14 +581,232 @@ def phase_train(torch, n_layers: int, seq: int, steps: int, card: str, profile: 
         "train", ok=ok, steps=steps, losses=[v for _, v in losses],
         grad_norm=metrics["grad_norm"], launches=launches, expected=expected,
         step_ms=step_ms, tokens_per_sec=B * seq * metrics["steps_per_sec"],
-        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        step_ms_without_prefetch=1e3 / sync["steps_per_sec"], step_ms_prefetch_again=1e3 / again["steps_per_sec"],
+        input_wait_ms=input_wait, input_wait_ms_prefetch_again=again_wait,
+        warmup_input_wait_ms=gauge_values(warm.drain_events(), "input_wait_ms"),
+        max_memory_allocated_gib=peak / 2**30,
         card=card,
     )
     if not ok:
         raise SystemExit(f"train phase failed: losses {losses}, launches {launches} != {expected}")
     if profile:
         profile_steps(torch, trainer, state, data, card, step_ms)
-    return launches, step_ms
+    return launches, step_ms, peak
+
+
+def gauge_values(events, name: str) -> list:
+    """Every value gauge ``name`` took in a recorder's drained events, in order."""
+    return [e["value"] for e in events if e["kind"] == "gauge" and e["name"] == name]
+
+
+def tensor_checksums(torch, model) -> list:
+    """One exact checksum per parameter: the sum of its fp32 bit patterns as
+    int64, summed in slices so no full-size int64 copy is made. Any changed
+    bit changes it (but for a collision that leaves every sum equal)."""
+    out = []
+    for p in model.parameters():
+        bits = p.detach().reshape(-1).view(torch.int32)
+        out.append(sum(int(part.to(torch.int64).sum()) for part in bits.split(1 << 26)))
+    return out
+
+
+def phase_train_resume(torch, cfg, seq: int, card: str, train_peak, train_step_ms):
+    """Phase 12: the ``train`` configuration from shards on local disk,
+    through the native batcher and fit's prefetcher: run A uninterrupted;
+    run B checkpointing every RESUME_EVERY steps until a preemption notice
+    after step RESUME_NOTICE; run C from other weights with
+    ``resume="auto"``. C's losses and final parameters must equal A's bit
+    for bit."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from maggy_tpu_torch import telemetry
+    from maggy_tpu_torch.models import Decoder
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.resilience import preemption
+    from maggy_tpu_torch.train import Checkpointer, NativeBatchLoader, ShardedDataset, Trainer, adamw, write_sharded
+
+    dev = torch.device("cuda", 0)
+    steps, every, notice = RESUME_STEPS, RESUME_EVERY, RESUME_NOTICE
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    root = tempfile.mkdtemp(prefix="train_resume_")
+    checks, runs = {}, {}
+    try:
+        free_start = shutil.disk_usage(root).free
+        n_params = sum(p.numel() for p in Decoder(cfg, device="meta").parameters())
+        need = 2 * 12 * n_params  # two checkpoints on disk while the second commits
+        if free_start < need:
+            raise SystemExit(f"train.resume: {free_start / 1e9:.1f} GB free under {root}, the phase needs "
+                             f"{need / 1e9:.1f} GB (two checkpoints of {12 * n_params / 1e9:.1f} GB)")
+        toks = np.random.default_rng(RESUME_DATA_SEED).integers(0, cfg.vocab_size, (RESUME_ROWS, seq)).astype(np.int32)
+        write_sharded(os.path.join(root, "data"), {"tokens": toks}, num_shards=RESUME_SHARDS)
+        ds = ShardedDataset(os.path.join(root, "data"))
+        arrays = {"tokens": np.concatenate([ds.open_shard("tokens", i) for i in range(ds.num_shards)])}
+        checks["data_round_trip"] = bool(np.array_equal(arrays["tokens"], toks))
+
+        def run(name, seed, ckpt=None, num=steps, **kw):
+            trainer = Trainer(Decoder(cfg, device="meta"), adamw(1e-4), device=dev)
+            state = trainer.make_state(seed, {"tokens": toks[:B]})
+            loader = NativeBatchLoader(arrays, B, seed=RESUME_DATA_SEED)
+            losses = []
+
+            class Record:
+                def broadcast(self, value, step):
+                    losses.append((step, value))
+                    if kw.get("notice") == step:
+                        preemption.request()
+
+            tel = telemetry.Telemetry(worker=name)
+            flash.reset_launches()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with telemetry.current(tel):
+                state, out = trainer.fit(state, loader, num, reporter=Record(), report_every=1, metrics_window=0,
+                                         prefetch=2, checkpointer=ckpt, checkpoint_every=kw.get("every", 0),
+                                         resume=kw.get("resume"))
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            loader.close()
+            if ckpt is not None:
+                ckpt.close()  # the last commit's span lands in this run's recorder; frees the host buffers
+            events = tel.drain_events()
+            spans = [e for e in events if e["kind"] == "span"]
+            rec = dict(losses=losses, out=out, launches=dict(flash.LAUNCHES), wall_s=wall, native=loader.using_native,
+                       checksums=tensor_checksums(torch, state.model), input_wait_ms=gauge_values(events, "input_wait_ms"),
+                       restore_s=[e["dur_ms"] / 1e3 for e in spans if e["name"] == "checkpoint_restore"],
+                       # the loop's stall and the writer thread's commit, per save
+                       blocked_s={e["attrs"]["step"]: e["dur_ms"] / 1e3 for e in spans
+                                  if e["name"] == "checkpoint_save"},
+                       commits={e["attrs"]["step"]: (e["dur_ms"] / 1e3, e["attrs"]["bytes"]) for e in spans
+                                if e["name"] == "checkpoint_commit"})
+            del trainer, state
+            gc.collect()
+            torch.cuda.empty_cache()
+            return rec
+
+        runs["a"] = run("resume.a", 0)
+        ckpt_b = Checkpointer(os.path.join(root, "ckpt"), max_to_keep=1)
+        runs["b"] = run("resume.b", 0, ckpt_b, every=every, notice=notice)
+        latest_b = ckpt_b.latest_step()
+        preemption.clear()
+        ckpt_c = Checkpointer(os.path.join(root, "ckpt"), max_to_keep=1)  # a new process would open it anew
+        runs["c"] = run("resume.c", 1, ckpt_c, resume="auto")
+    finally:
+        preemption.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    a, b, c = runs["a"], runs["b"], runs["c"]
+    per_step = flash_launches_per_step(cfg.n_layers)
+    la = [v for _, v in a["losses"]]
+    saves = [dict(step=step, blocked_s=b["blocked_s"].get(step), commit_s=t, bytes=n)
+             for step, (t, n) in sorted(b["commits"].items())]
+    checks.update(
+        native_loader=a["native"] and b["native"] and c["native"],
+        preempted=b["out"].get("preempted") == 1.0 and latest_b == notice and len(b["losses"]) == notice,
+        saves=[r["step"] for r in saves] == [every, notice],
+        resumed_from=c["out"].get("resumed_from") == notice and [s for s, _ in c["losses"]] == list(
+            range(notice + 1, steps + 1)),
+        losses_bit_equal=[v for _, v in b["losses"]] + [v for _, v in c["losses"]] == la,
+        params_bit_equal=c["checksums"] == a["checksums"],
+        launches=all(r["launches"] == {k: v * n for k, v in per_step.items()}
+                     for r, n in ((a, steps), (b, notice), (c, steps - notice))),
+        losses_finite=all(math.isfinite(v) for v in la),
+    )
+    gib = 2**30
+    torch.cuda.synchronize(dev)
+    peak, after = torch.cuda.max_memory_allocated(dev), torch.cuda.memory_allocated(dev)
+    checks["memory_back"] = abs(after - base) <= gib
+    checks["peak_near_train"] = peak <= train_peak + 2 * gib
+    nbytes = saves[0]["bytes"] if saves else None
+    ok = all(checks.values())
+    emit(
+        "train.resume", ok=ok, checks=checks, steps=steps, checkpoint_every=every, notice_after=notice,
+        disk_free_gb_at_start=free_start / 1e9, checkpoint_bytes=nbytes,
+        saves=[dict(r, d2h_gb_per_s=r["bytes"] / r["blocked_s"] / 1e9 if r["blocked_s"] else None,
+                    commit_gb_per_s=r["bytes"] / r["commit_s"] / 1e9) for r in saves],
+        restore_s=c["restore_s"], restore_gb_per_s=[nbytes / t / 1e9 for t in c["restore_s"]] if nbytes else None,
+        step_ms={k: 1e3 / r["out"]["steps_per_sec"] for k, r in runs.items()}, train_step_ms=train_step_ms,
+        wall_s={k: r["wall_s"] for k, r in runs.items()},
+        input_wait_ms={k: r["input_wait_ms"] for k, r in runs.items()},
+        losses={k: [v for _, v in r["losses"]] for k, r in runs.items()},
+        launches={k: r["launches"] for k, r in runs.items()},
+        peak_gib=peak / gib, train_peak_gib=train_peak / gib, memory_after_minus_before_gib=(after - base) / gib,
+        card=card,
+    )
+    if not ok:
+        raise SystemExit(f"train.resume failed: {[k for k, v in checks.items() if not v]}")
+    total = {k: sum(r["launches"][k] for r in runs.values()) for k in per_step}
+    return total
+
+
+def phase_train_remat(torch, cfg, seq: int, card: str):
+    """Phase 13: one forward and backward of the ``train`` configuration on
+    one batch under each remat setting, from the same parameters, gradients
+    cleared between them; each policy's loss and gradients must equal
+    ``remat=False``'s bit for bit, and the flash forward must launch as the
+    policy says (the kernels' backward once a layer under every one)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from maggy_tpu_torch.models import Decoder
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.train.trainer import lm_loss_fn
+
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = Decoder(dataclasses.replace(cfg, remat=False), device=dev, generator=gen)
+    toks = np.random.default_rng(RESUME_DATA_SEED).integers(0, cfg.vocab_size, (B, seq)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    rows, ref = {}, None
+    n = cfg.n_layers
+    for remat, policy in REMAT_ORDER:
+        model.cfg = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
+        name = policy if remat else "remat=False"
+        times = []
+        for _ in range(2):  # the first is a warm-up; the second is timed and checked
+            model.zero_grad(set_to_none=True)
+            gc.collect()
+            torch.cuda.synchronize(dev)
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            flash.reset_launches()
+            t0 = time.perf_counter()
+            loss = lm_loss_fn(model(batch["tokens"]), batch)
+            loss.backward()
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        launches = dict(flash.LAUNCHES)
+        grads = [p.grad for p in model.parameters()]
+        peak = torch.cuda.max_memory_allocated(dev)
+        if ref is None:
+            ref = (loss.detach(), grads)
+        fwd = {"remat=False": 1, "nothing": 2, "dots": 2, "dots_attn": 1}[name]
+        rows[name] = dict(
+            step_ms=times[-1] * 1e3, launches=launches,
+            expected={"flash_fwd": fwd * n, "flash_bwd_dq": n, "flash_bwd_dkv": n},
+            bit_equal=bool(torch.equal(loss.detach(), ref[0])) and all(
+                torch.equal(g, r) for g, r in zip(grads, ref[1])),
+            loss=float(loss.detach()), peak_gib=peak / 2**30, step_peak_gib=(peak - held) / 2**30,
+        )
+    del model, ref, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {name: r["bit_equal"] and r["launches"] == r["expected"] for name, r in rows.items()}
+    ok = all(checks.values())
+    emit("train.remat", ok=ok, checks=checks, policies=rows, batch=[B, seq], card=card)
+    if not ok:
+        raise SystemExit(f"train.remat failed: {[k for k, v in checks.items() if not v]}")
+    return {k: sum(r["launches"][k] for r in rows.values()) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
 def ring_chunks(torch, gen, packed: bool):
@@ -1605,7 +1887,7 @@ def main(argv=None) -> int:
 
     rows = phase_kernels(torch)
     phase_model(torch, N_LAYERS, S)
-    launches, train_step_ms = phase_train(torch, N_LAYERS, S, TRAIN_STEPS, card, args.profile)
+    launches, train_step_ms, train_peak = phase_train(torch, N_LAYERS, S, TRAIN_STEPS, card, args.profile)
     rows.update(phase_ring_kernels(torch))
     phase_ring_model(torch, N_LAYERS, RING_S)
     ring_launches = phase_ring_train(torch, N_LAYERS, RING_S, TRAIN_STEPS, card, args.profile)
@@ -1628,6 +1910,14 @@ def main(argv=None) -> int:
     del master
     # the HPO control plane on top: the `train` configuration as two trials
     phase_lagom_train(torch, DecoderConfig.llama3_8b(n_layers=N_LAYERS), S, LAGOM_STEPS, card, train_step_ms)
+    # the rest of the Trainer: checkpoints, the preemption save and resume
+    # from sharded data, then the remat policies; their flash launches join
+    # the `train` phase's in the kernels line
+    cfg = DecoderConfig.llama3_8b(n_layers=N_LAYERS)
+    for more in (phase_train_resume(torch, cfg, S, card, train_peak, train_step_ms),
+                 phase_train_remat(torch, cfg, S, card)):
+        for name, n in more.items():
+            launches[name] += n
 
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=TPU_KERNELS[name],

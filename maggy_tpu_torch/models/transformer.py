@@ -33,23 +33,46 @@ package's ``_constrain_residual`` has no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from maggy_tpu_torch.ops import attention as ops_attn
 from maggy_tpu_torch.util import resolve_device
 
-# remat policies by name. "nothing" recomputes the whole layer in the
-# backward (minimum memory); "everything" saves it all (no recompute). The
-# JAX package's "dots" and "dots_attn" save chosen matmul outputs and are
-# not ported yet.
-REMAT_POLICIES = ("nothing", "everything")
-_QUEUED_POLICIES = ("dots", "dots_attn")
+# remat policies by name, the JAX package's. "nothing" recomputes the whole
+# layer in the backward (minimum memory); "everything" saves it all (no
+# recompute). "dots" saves the projections' matmul outputs (JAX's
+# dots_with_no_batch_dims_saveable: aten.mm/addmm, not the batched bmm) and
+# recomputes the rest, the flash forward included; "dots_attn" also saves
+# the flash forward's O and LSE, which the dQ and dK/dV kernels read, so the
+# forward kernel runs once per layer. (JAX's "dots_attn" saves only O, so
+# its backward still re-runs the Pallas forward for the LSE.)
+REMAT_POLICIES = ("nothing", "dots", "dots_attn", "everything")
+
+
+def _saved_ops(policy: str) -> frozenset:
+    """The operators whose outputs a selective-checkpoint policy keeps."""
+    dots = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+    if policy == "dots_attn":
+        from maggy_tpu_torch.ops.flash import flash_forward_op
+
+        dots.add(flash_forward_op._opoverload)
+    return frozenset(dots)
+
+
+def _selective_context(policy: str):
+    saved = _saved_ops(policy)
+
+    def keep(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(keep)
 
 
 def _parse_ablated(ablated, n_layers: int):
@@ -135,15 +158,8 @@ class DecoderConfig:
             raise ValueError("d_model must be divisible by n_heads")
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be divisible by n_kv_heads")
-        if self.remat_policy not in REMAT_POLICIES + _QUEUED_POLICIES:
-            raise ValueError(
-                f"remat_policy must be one of {sorted(REMAT_POLICIES + _QUEUED_POLICIES)}"
-            )
-        if self.remat and self.remat_policy in _QUEUED_POLICIES:
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} is not ported yet; "
-                f"use one of {REMAT_POLICIES}"
-            )
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {sorted(REMAT_POLICIES)}")
         if self.paged:
             if not self.decode:
                 raise ValueError("paged=True requires decode=True")
@@ -571,12 +587,15 @@ class Decoder(nn.Module):
         # (flax's jnp.asarray(embed, dtype)[tokens]) without a bf16 table copy
         x = F.embedding(tokens, self.embedding).to(cfg.dtype)
         # no gradients (hence no remat) on the cache path
-        recompute = cfg.remat and cfg.remat_policy == "nothing" and step is None
+        recompute = cfg.remat and cfg.remat_policy != "everything" and step is None
+        remat_kw = {}
+        if recompute and cfg.remat_policy != "nothing":
+            remat_kw["context_fn"] = functools.partial(_selective_context, cfg.remat_policy)
         all_gates = None if self._gates is None else torch.from_numpy(self._gates).to(x.device)
         for i, layer in enumerate(self.layers):
             gates = None if all_gates is None else all_gates[i]
             if recompute:
-                x = checkpoint(layer, x, positions, gates, segment_ids, use_reentrant=False)
+                x = checkpoint(layer, x, positions, gates, segment_ids, use_reentrant=False, **remat_kw)
             elif step is not None:
                 x = layer(x, positions, gates, None, (step, i))
             else:

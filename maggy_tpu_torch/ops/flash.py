@@ -29,7 +29,7 @@ alignment fallback.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -272,14 +272,27 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"flash attention runs on cuda or cpu, not {t.device}")
 
 
+@torch.library.custom_op("maggy_tpu_torch::flash_forward", mutates_args=())
+def flash_forward_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segment_ids: Optional[torch.Tensor], causal: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of :func:`flash_attention`, (O, LSE), as an operator of
+    the dispatcher: the kernel for CUDA tensors, its plain version for CPU
+    ones. Being an operator, it is visible to a selective-checkpoint
+    policy, which can keep its outputs instead of running it again in the
+    backward (``remat_policy="dots_attn"``); a ctypes launch alone is not."""
+    fwd = flash_fwd_reference if _on_cpu(q) else flash_fwd
+    return fwd(q, k, v, causal=causal, segment_ids=segment_ids)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Mirror of ``_flash_core``'s custom VJP: the forward saves O and the
     LSE; the backward recomputes P from them (no [S, S] residual)."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal):
-        fwd = flash_fwd_reference if _on_cpu(q) else flash_fwd
-        o, lse = fwd(q, k, v, causal=causal, segment_ids=segment_ids)
+        _on_cpu(q)  # a device other than cuda or cpu raises here, before dispatch
+        o, lse = flash_forward_op(q, k, v, segment_ids, causal)
         ctx.save_for_backward(q, k, v, o, lse, segment_ids)
         ctx.causal = causal
         return o

@@ -10,6 +10,9 @@ its own RPC drivers, so recovery is a runtime concern here instead:
   backoff with deterministic jitter), and :class:`QuarantineTracker`
   (a worker whose consecutive trials keep dying is taken out of scheduling
   for a cooldown window).
+* :mod:`maggy_tpu_torch.resilience.preemption` — the SIGTERM/preemption
+  hook ``Trainer.fit`` installs when it holds a checkpointer: one final
+  synchronous save before the process dies.
 * :mod:`maggy_tpu_torch.resilience.chaos` — deterministic fault injector (kill
   worker N at step K, drop heartbeats, stall an RPC reply, ...) on a
   config/env seam, so recovery paths are testable on CPU without real
@@ -17,10 +20,11 @@ its own RPC drivers, so recovery is a runtime concern here instead:
 * :mod:`maggy_tpu_torch.resilience.membership` — epoch-numbered elastic
   membership views, for the distributed driver (ROADMAP queue 1 item 7).
 
-``preemption.py`` (the SIGTERM save in ``Trainer.fit``) is not ported yet
-(ROADMAP queue 1 item 9). Consumers: ``core/driver/hpo.py`` (trial requeue +
-quarantine) and ``core/rpc.py`` (jittered reconnects, chaos seams). Recovery
-actions count ``resilience.*`` telemetry.
+Consumers: ``core/driver/hpo.py`` (trial requeue + quarantine),
+``train/trainer.py`` (``fit(resume="auto")`` + preemption save),
+``train/checkpoint.py`` (restore fallback) and ``core/rpc.py`` (jittered
+reconnects, chaos seams). Recovery actions count ``resilience.*``
+telemetry.
 """
 
 from __future__ import annotations

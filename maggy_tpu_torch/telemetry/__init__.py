@@ -17,9 +17,13 @@ the control plane and the serving engine.
   recorder.
 * :mod:`~maggy_tpu_torch.telemetry.memtrack` — the device-memory ledger over
   tensors.
+* :mod:`~maggy_tpu_torch.telemetry.timeseries` — bounded ring-buffer series
+  sampled from a recorder on a fixed tick (``Trainer.fit`` keeps one).
+* :mod:`~maggy_tpu_torch.telemetry.flops` — the 6N FLOPs/token estimate and
+  the ``mfu_est`` gauge against the card's peak.
 
-``alerts`` and ``timeseries`` come with the scheduler (ROADMAP queue 1
-item 6a); ``flightrec.dump`` imports ``alerts`` inside a guard.
+``alerts`` comes with the scheduler (ROADMAP queue 1 item 6a);
+``flightrec.dump`` imports it inside a guard.
 
 Wiring: executors build a worker recorder (:func:`worker_telemetry`), install
 it as the thread-ambient recorder (:func:`get`), and hand it to the RPC
@@ -29,8 +33,9 @@ attaches a snapshot that the driver folds into STATUS.
 
 from __future__ import annotations
 
-from maggy_tpu_torch.telemetry import flightrec, tracing  # noqa: F401
+from maggy_tpu_torch.telemetry import flightrec, timeseries, tracing  # noqa: F401
 from maggy_tpu_torch.telemetry.histogram import LatencyHistogram  # noqa: F401
+from maggy_tpu_torch.telemetry.timeseries import Series, SeriesStore  # noqa: F401
 from maggy_tpu_torch.telemetry.recorder import (  # noqa: F401
     NULL,
     NullTelemetry,
@@ -54,6 +59,9 @@ __all__ = [
     "telemetry_dir",
     "worker_telemetry",
     "LatencyHistogram",
+    "Series",
+    "SeriesStore",
     "tracing",
     "flightrec",
+    "timeseries",
 ]

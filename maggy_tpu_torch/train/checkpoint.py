@@ -1,11 +1,418 @@
-"""Checkpoint helpers: so far only the JAX-free :func:`load_finalized_trials`
-of :mod:`maggy_tpu.train.checkpoint`, which ``resume_from`` needs. The rest of
-the module (the Checkpointer on safetensors) is ROADMAP queue 1 item 4."""
+"""Checkpointing and experiment resume.
+
+Counterpart of :mod:`maggy_tpu.train.checkpoint`, with orbax replaced by
+``torch.save``:
+
+* :class:`Checkpointer` — async save and restore of a
+  :class:`~maggy_tpu_torch.train.trainer.TrainState` into a trial directory,
+  with the JAX package's API and JSON sidecar meta.
+* :func:`restore_zero_compat` — the ZeRO-aware restore ``fit(resume=...)``
+  goes through; only the dense layout is ported (ROADMAP queue 1 item 7).
+* experiment resume — :func:`load_finalized_trials` preloads a previous
+  experiment's persisted ``trial.json`` records.
+
+On disk, under the checkpointer's directory::
+
+    <step>/state.pt            # torch.save({"step", "params", "optimizer"})
+    system_meta/<step>.json    # Trainer.checkpoint_meta() at save time
+
+``params`` is the model's ``named_parameters()`` in order; ``optimizer`` is
+the optimizer's full ``state_dict()`` (each parameter's moments and its
+``step`` tensor, which bias correction reads, and the param-group
+hyperparameters), whose state is keyed by parameter order — so a restore
+into a trainer built the same way puts every value back where it was.
+
+A save commits atomically, as orbax's does: the step is written into a
+temporary directory whose name is not a step number, its file and the
+directory are fsync'd, the directory is renamed to ``<step>`` and the parent
+fsync'd, and only then are older steps pruned to ``max_to_keep``. A process
+killed mid-save leaves the previous step as :meth:`Checkpointer.latest_step`;
+the leftover temporary directory is ignored, and removed by the next
+checkpointer opened on the directory.
+
+Async means the training loop blocks only for the copy of every tensor into
+host buffers (kept across saves, so each save after the first reuses them);
+the file write runs on a thread, which the next :meth:`Checkpointer.save` or
+:meth:`Checkpointer.wait` joins. It is not a daemon thread: an interpreter
+that exits right after a save waits for it to commit. A restore loads with
+``torch.load(weights_only=True, mmap=True)`` and copies each tensor straight
+from the mapped file into the live one: the host holds no second copy and
+nothing is staged on the card.
+"""
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import threading
+import time
+import warnings
+from typing import Any, Dict, List, Optional
+
+import torch
+
+# sidecar directory (non-numeric name: invisible to the step scan) holding
+# one JSON per step with the system config the state was saved under
+_META_DIR = "system_meta"
+_STATE_FILE = "state.pt"
+_TMP_MARK = ".tmp-"
+
+
+def _fsync(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+class Checkpointer:
+    """Save and restore TrainStates under one directory (per trial or per run)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3, async_save: bool = True):
+        if max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = int(max_to_keep)
+        self.async_save = async_save
+        os.makedirs(self.directory, exist_ok=True)
+        for name in os.listdir(self.directory):  # an interrupted save's leftovers
+            if _TMP_MARK in name:
+                shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
+        self._host: Dict[Any, torch.Tensor] = {}  # reused host buffers, by tensor slot
+        self._writer: Optional[threading.Thread] = None
+        self._write_error: Optional[BaseException] = None
+        self._writing: Optional[int] = None  # the step the writer thread commits
+
+    # ------------------------------------------------------------------ save
+
+    def _to_host(self, key, t: torch.Tensor) -> torch.Tensor:
+        buf = self._host.get(key)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = self._host[key] = torch.empty(t.shape, dtype=t.dtype, device="cpu")
+        buf.copy_(t.detach())
+        return buf
+
+    def _snapshot(self, step: int, state: Any) -> Dict[str, Any]:
+        """Host copies of the state's tensors, in the buffers kept for them."""
+        params = {
+            name: self._to_host(("p", name), p)
+            for name, p in state.model.named_parameters()
+        }
+        osd = state.optimizer.state_dict()
+        opt_state = {
+            idx: {
+                k: self._to_host(("o", idx, k), v) if isinstance(v, torch.Tensor) else v
+                for k, v in per_param.items()
+            }
+            for idx, per_param in osd["state"].items()
+        }
+        return {
+            "step": int(step),
+            "params": params,
+            "optimizer": {"state": opt_state, "param_groups": osd["param_groups"]},
+        }
+
+    def save(self, step: int, state: Any, meta: Optional[Dict[str, Any]] = None) -> None:
+        """Save ``state`` at ``step``. ``meta`` — the active system config
+        (``Trainer.checkpoint_meta()``) — is recorded in a JSON sidecar so a
+        later restore can warn when the live configuration differs from the
+        one that wrote the checkpoint. Returns once the state is copied to
+        host memory; the write commits in the background unless the
+        checkpointer was made with ``async_save=False``. A step that is
+        already saved, or being written, is not saved again (as orbax's
+        manager skips it)."""
+        from maggy_tpu_torch import telemetry
+
+        tel = telemetry.get()
+        step = int(step)
+        if (self._writer is not None and self._writing == step) or step in self.all_steps():
+            if not self.async_save:
+                self.wait()
+            return
+        self.wait()  # the previous write owns the host buffers until it commits
+        t0 = time.perf_counter()
+        with tel.span("checkpoint_save", step=step):
+            payload = self._snapshot(step, state)
+        nbytes = sum(b.numel() * b.element_size() for b in self._host.values())
+        if meta is not None:
+            self._write_meta(step, meta)
+        self._writing = step
+        self._writer = threading.Thread(
+            target=self._write, args=(step, payload, nbytes, tel), name="maggy-checkpoint-writer"
+        )
+        self._writer.start()
+        if not self.async_save:
+            self.wait()
+        # the blocking cost: what a save steals from the step time
+        tel.gauge("checkpoint_save_ms", (time.perf_counter() - t0) * 1e3)
+
+    def _write(self, step: int, payload: Dict[str, Any], nbytes: int, tel: Any) -> None:
+        """The writer thread: commit ``payload`` as ``step``. The
+        ``checkpoint_commit`` span (the write, fsyncs and rename, with the
+        bytes written) goes to the recorder that was current at ``save``."""
+        final = os.path.join(self.directory, str(step))
+        tmp = os.path.join(self.directory, f"{step}{_TMP_MARK}{os.getpid()}-{time.monotonic_ns()}")
+        try:
+            with tel.span("checkpoint_commit", step=step, bytes=nbytes):
+                os.makedirs(tmp)
+                path = os.path.join(tmp, _STATE_FILE)
+                torch.save(payload, path)
+                _fsync(path)
+                _fsync(tmp)
+                if os.path.exists(final):  # a bare step directory without its file: not a step
+                    shutil.rmtree(final)
+                os.rename(tmp, final)
+                _fsync(self.directory)
+            self._prune()
+        except BaseException as e:  # noqa: BLE001 - raised by the next wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+            self._write_error = e
+
+    def _prune(self) -> None:
+        for old in self.all_steps()[: -self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+
+    def wait(self) -> None:
+        """Block until the last save has committed; raise its error if the
+        write failed."""
+        writer, self._writer = self._writer, None
+        if writer is not None:
+            writer.join()
+        err, self._write_error = self._write_error, None
+        if err is not None:
+            raise RuntimeError(f"checkpoint write under {self.directory} failed") from err
+
+    def close(self) -> None:
+        """Wait for the last save and release the host buffers."""
+        try:
+            self.wait()
+        finally:
+            self._host.clear()
+
+    # ------------------------------------------------------------------ meta
+
+    def _meta_path(self, step: int) -> str:
+        return os.path.join(self.directory, _META_DIR, f"{int(step)}.json")
+
+    def _write_meta(self, step: int, meta: Dict[str, Any]) -> None:
+        from maggy_tpu_torch.util import _jsonify
+
+        path = self._meta_path(step)
+        try:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                json.dump(_jsonify(meta), f, sort_keys=True)
+        except OSError:
+            pass  # metadata is advisory; never fail a save over it
+
+    def saved_meta(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """The system-config metadata recorded with ``step`` (default:
+        latest), or None for checkpoints saved without it."""
+        step = int(step) if step is not None else self.latest_step()
+        if step is None:
+            return None
+        try:
+            with open(self._meta_path(step)) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    # the layout keys get their own counter: a restore across world sizes
+    _LAYOUT_KEYS = ("mesh_axes", "num_devices", "n_processes")
+
+    def _check_meta(self, step: int, expect_meta: Dict[str, Any]) -> None:
+        """Warn (never fail) when the checkpoint's recorded system config
+        disagrees with the live one on any shared key, and count a
+        ``resilience.ckpt_reshards`` when the layout differs."""
+        from maggy_tpu_torch import telemetry
+        from maggy_tpu_torch.util import _jsonify
+
+        saved = self.saved_meta(step)
+        if not saved or not expect_meta:
+            return
+        expect = _jsonify(expect_meta)
+        keys = [k for k in sorted(set(saved) & set(expect)) if saved[k] != expect[k]]
+        if set(keys) & set(self._LAYOUT_KEYS):
+            telemetry.get().count("resilience.ckpt_reshards")
+        diffs = [f"{k}: saved={saved[k]!r} live={expect[k]!r}" for k in keys]
+        if diffs:
+            warnings.warn(
+                f"checkpoint step {step} was saved under a different system "
+                f"config than the live one ({'; '.join(diffs)}); the state "
+                "is restored onto the live devices, but training dynamics "
+                "(batch/microbatch semantics) may differ",
+                stacklevel=3,
+            )
+
+    # --------------------------------------------------------------- restore
+
+    def _load(self, step: int) -> Dict[str, Any]:
+        path = os.path.join(self.directory, str(step), _STATE_FILE)
+        return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+    def restore(
+        self,
+        state_template: Any,
+        step: Optional[int] = None,
+        expect_meta: Optional[Dict[str, Any]] = None,
+    ) -> Any:
+        """Restore into the live ``state_template`` (a ``TrainState`` from
+        ``Trainer.make_state``), in place, and return it: every parameter,
+        the optimizer's state and hyperparameters, and the step. Tensors
+        land on the devices the live ones are on. Pass the live trainer's
+        ``checkpoint_meta()`` as ``expect_meta`` to be warned when the
+        checkpoint was written under a different configuration.
+
+        Fallback: when no explicit ``step`` was requested and the latest
+        retained step is unreadable, older retained steps are tried
+        newest-first — each skip warns and counts a ``checkpoint_fallback``.
+        An explicitly requested step never falls back."""
+        from maggy_tpu_torch import telemetry
+
+        explicit = step is not None
+        step = int(step) if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"No checkpoint found under {self.directory}")
+        candidates = (
+            [step]
+            if explicit
+            else sorted((s for s in self.all_steps() if s <= step), reverse=True)
+        )
+        for i, s in enumerate(candidates):
+            if expect_meta is not None:
+                self._check_meta(s, expect_meta)
+            try:
+                payload = self._load(s)
+            # a truncated or corrupt file surfaces as several types (zip,
+            # unpickling, OS errors): anything but success means "this step
+            # is gone"
+            except Exception as e:  # noqa: BLE001
+                if explicit or i == len(candidates) - 1:
+                    raise
+                telemetry.get().count("checkpoint_fallback")
+                warnings.warn(
+                    f"checkpoint step {s} under {self.directory} is "
+                    f"unreadable ({type(e).__name__}: {e}); falling back to "
+                    f"the previous retained step {candidates[i + 1]}",
+                    stacklevel=2,
+                )
+                continue
+            with telemetry.get().span("checkpoint_restore", step=s):
+                _copy_into(state_template, payload)
+            return state_template
+        raise FileNotFoundError(f"No checkpoint found under {self.directory}")
+
+    def restore_params(self, step: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """Params-only restore for serving: the saved ``named_parameters()``
+        as a ``state_dict`` of host tensors mapped from the file — what
+        ``model.load_state_dict`` takes — without building an optimizer."""
+        from maggy_tpu_torch import telemetry
+
+        step = int(step) if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"No checkpoint found under {self.directory}")
+        with telemetry.get().span("checkpoint_restore_params", step=step):
+            payload = self._load(step)
+        if "params" not in payload:
+            raise ValueError(
+                f"checkpoint at step {step} has no 'params' (keys: {sorted(payload)})"
+            )
+        return dict(payload["params"])
+
+    def all_steps(self) -> List[int]:
+        """Committed steps, oldest first."""
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(
+            int(name) for name in os.listdir(self.directory)
+            if name.isdigit() and os.path.isfile(os.path.join(self.directory, name, _STATE_FILE))
+        )
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+
+@torch.no_grad()
+def _copy_into(state: Any, payload: Dict[str, Any]) -> None:
+    """Copy a loaded checkpoint into a live TrainState: tensors that exist
+    are overwritten in place; optimizer state a fresh optimizer has not made
+    yet is made on its parameter's device."""
+    params = dict(state.model.named_parameters())
+    saved = payload["params"]
+    if list(saved) != list(params):
+        missing, extra = set(params) - set(saved), set(saved) - set(params)
+        raise ValueError(
+            f"checkpoint parameters differ from the model's (missing {sorted(missing)}, "
+            f"unexpected {sorted(extra)}, or in another order)"
+        )
+    for name, p in params.items():
+        if tuple(saved[name].shape) != tuple(p.shape):
+            raise ValueError(f"{name}: checkpoint shape {tuple(saved[name].shape)} != {tuple(p.shape)}")
+        p.copy_(saved[name])
+
+    opt = state.optimizer
+    osd = payload["optimizer"]
+    live_groups = opt.param_groups
+    if len(osd["param_groups"]) != len(live_groups) or any(
+        len(g["params"]) != len(lg["params"]) for g, lg in zip(osd["param_groups"], live_groups)
+    ):
+        raise ValueError("checkpoint optimizer param groups differ from the live optimizer's")
+    live_params = [p for g in live_groups for p in g["params"]]
+    saved_state = osd["state"]
+    for idx, p in enumerate(live_params):
+        values = saved_state.get(idx)
+        if values is None:
+            opt.state.pop(p, None)
+            continue
+        live = opt.state[p]
+        for key, val in values.items():
+            if not isinstance(val, torch.Tensor):
+                live[key] = val
+                continue
+            cur = live.get(key)
+            if isinstance(cur, torch.Tensor) and cur.shape == val.shape and cur.dtype == val.dtype:
+                cur.copy_(val)
+            elif key == "step":  # a scalar counter stays where the optimizer keeps it
+                live[key] = val.clone()
+            else:
+                fresh = torch.empty(val.shape, dtype=val.dtype, device=p.device)
+                fresh.copy_(val)
+                live[key] = fresh
+        for key in set(live) - set(values):
+            del live[key]
+    for group, saved_group in zip(live_groups, osd["param_groups"]):
+        group.update({k: v for k, v in saved_group.items() if k != "params"})
+    state.step = int(payload["step"])
+
+
+_DENSE_ZERO = {"stage": 0, "bucket_mb": None, "shards": 1}
+
+
+def restore_zero_compat(
+    checkpointer: Checkpointer,
+    state_template: Any,
+    *,
+    live_meta: Optional[Dict[str, Any]] = None,
+    step: Optional[int] = None,
+) -> Any:
+    """Restore a TrainState across ZeRO layouts. Only the dense layout
+    (``zero.stage == 0``, saved and live) is ported: then it is exactly
+    :meth:`Checkpointer.restore`. A ZeRO-1 layout on either side raises
+    :class:`NotImplementedError` (ROADMAP queue 1 item 7)."""
+    live_zero = dict((live_meta or {}).get("zero") or _DENSE_ZERO)
+    resolved = int(step) if step is not None else checkpointer.latest_step()
+    saved_meta = checkpointer.saved_meta(resolved) if resolved is not None else None
+    saved_zero = dict((saved_meta or {}).get("zero") or _DENSE_ZERO)
+    for side, zero in (("saved", saved_zero), ("live", live_zero)):
+        if int(zero.get("stage") or 0) != 0:
+            raise NotImplementedError(
+                f"the {side} optimizer state has ZeRO stage {zero.get('stage')}; the port "
+                "restores the dense layout only (ZeRO-1 is ROADMAP queue 1 item 7)"
+            )
+    return checkpointer.restore(state_template, step=step, expect_meta=live_meta)
 
 
 def load_finalized_trials(exp_dir: str) -> list:

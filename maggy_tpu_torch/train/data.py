@@ -1,4 +1,5 @@
-"""Host-side data: minibatch iteration and synthetic LM streams.
+"""Host-side data: per-process shards, minibatch iteration and synthetic LM
+streams.
 
 Own copies of the JAX package's ``maggy_tpu.train.data`` pieces the training
 slice needs; batches are dicts of numpy arrays, moved to the device by
@@ -10,6 +11,18 @@ from __future__ import annotations
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+
+def host_shard(arrays: Dict[str, np.ndarray], process_index: int, num_processes: int):
+    """Slice every array's leading axis into this process's contiguous shard."""
+    if num_processes <= 1:
+        return arrays
+    out = {}
+    for k, v in arrays.items():
+        n = v.shape[0]
+        per = n // num_processes
+        out[k] = v[process_index * per : (process_index + 1) * per]
+    return out
 
 
 class BatchIterator:
@@ -43,6 +56,7 @@ class BatchIterator:
         self._idx: Optional[np.ndarray] = None  # current epoch's permutation
         self._pos = 0  # row offset into the current epoch
         self._exhausted = False
+        self.batches_materialized = 0  # row gathers done (skip test hook)
 
     def __iter__(self) -> "BatchIterator":
         return self
@@ -70,6 +84,7 @@ class BatchIterator:
         self._ensure_epoch()
         take = self._idx[self._pos : self._pos + self.batch_size]
         batch = {k: v[take] for k, v in self.arrays.items()}
+        self.batches_materialized += 1
         self._advance()
         return batch
 
@@ -90,6 +105,26 @@ class BatchIterator:
                 self._advance()
             skipped += take
         return skipped
+
+
+def batch_iterator(
+    arrays: Dict[str, np.ndarray],
+    batch_size: int,
+    *,
+    shuffle: bool = True,
+    seed: int = 0,
+    drop_remainder: bool = True,
+    loop: bool = True,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Minibatch iterator over array dicts (see :class:`BatchIterator`)."""
+    return BatchIterator(
+        arrays,
+        batch_size,
+        shuffle=shuffle,
+        seed=seed,
+        drop_remainder=drop_remainder,
+        loop=loop,
+    )
 
 
 def synthetic_lm_batches(

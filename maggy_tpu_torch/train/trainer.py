@@ -2,11 +2,14 @@
 
 Counterpart of the dense path of :mod:`maggy_tpu.train.trainer`: the LM and
 classification losses, a ``TrainState``, a ``Trainer`` with ``make_state``,
-``step``, ``eval_logits``, ``evaluate`` and a minimal ``fit``, and a
+``step``, ``eval_logits``, ``evaluate``, ``checkpoint_meta`` and ``fit``
+(checkpoints, ``resume``, the preemption save, the input prefetcher, the
+profiler window and the telemetry of the JAX ``fit``), and a
 ``TrainContext`` for sequence parallelism (``ShardingSpec(sp=n)``), whose
 model attends through :mod:`maggy_tpu_torch.parallel.ringattention`. The
-other mesh axes, pipeline, overlap/ZeRO, autopilot, checkpoint, resume and
-prefetch parts of the JAX trainer belong to later slices of the port.
+other mesh axes, pipeline, overlap/ZeRO and elastic membership (ROADMAP
+queue 1 item 7) and the autopilot (item 9) belong to later slices of the
+port.
 
 Where the JAX step is a pure function returning a new state, ``step``
 updates the parameters and optimizer in place and returns the same state
@@ -17,6 +20,7 @@ never waits on the card inside the loop unless it asks for a value.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple, Union
@@ -30,6 +34,17 @@ from maggy_tpu_torch.parallel.spec import ShardingSpec
 from maggy_tpu_torch.util import resolve_device
 
 Batch = Dict[str, Any]
+
+
+def _prefetch_depth(prefetch: Optional[int]) -> int:
+    """Resolve an input-prefetch depth: an explicit argument wins, else the
+    ``MAGGY_TPU_PREFETCH`` env knob, else 2 (double-buffered). 0 disables."""
+    if prefetch is not None:
+        return max(0, int(prefetch))
+    try:
+        return max(0, int(os.environ.get("MAGGY_TPU_PREFETCH", "2")))
+    except ValueError:
+        return 2
 
 
 def _lm_loss_parts(
@@ -209,8 +224,14 @@ class Trainer:
     device: Any = None
     loss_fn: Callable = lm_loss_fn
     ring: Any = None
+    # elastic membership (a MembershipMonitor) is ROADMAP queue 1 item 7
+    membership: Optional[Any] = None
 
     def __post_init__(self):
+        if self.membership is not None:
+            raise NotImplementedError(
+                "elastic membership is not ported yet (ROADMAP queue 1 item 7)"
+            )
         self.device = resolve_device(self.device)
         if self.ring is not None and not isinstance(self.ring, (LocalRing, ProcessGroupRing)):
             raise TypeError(f"ring must be a LocalRing or a ProcessGroupRing, got {type(self.ring).__name__}")
@@ -339,6 +360,31 @@ class Trainer:
             total = loss if total is None else total + loss
         return {"loss": float(total) / num_batches}
 
+    def checkpoint_meta(self) -> Dict[str, Any]:
+        """The active system configuration, recorded by ``Checkpointer.save``
+        beside every state this trainer checkpoints; restores compare it
+        with the live trainer's and warn on a mismatch. The keys are the
+        JAX trainer's: the ring's ``sp`` axis (the only mesh axis ported),
+        the devices and processes, no microbatching, the model's compute
+        dtype and the dense ZeRO layout."""
+        import torch.distributed as dist
+
+        ring = self.ring
+        sp = ring.size if ring is not None else 1
+        cfg = getattr(self.model, "cfg", None)
+        return {
+            "mesh_axes": {"sp": sp} if sp > 1 else {},
+            "num_devices": ring.size if isinstance(ring, ProcessGroupRing) else 1,
+            "n_processes": dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1,
+            "n_microbatches": None,
+            "dtype": str(getattr(cfg, "dtype", None)) if cfg is not None else None,
+            "zero": {"stage": 0, "bucket_mb": None, "shards": 1},
+        }
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def fit(
         self,
         state: TrainState,
@@ -348,44 +394,251 @@ class Trainer:
         report_every: int = 10,
         metric_key: str = "loss",
         metric_sign: float = 1.0,
+        checkpointer=None,
+        checkpoint_every: int = 0,
+        profile_dir: Optional[str] = None,
+        profile_steps: Tuple[int, int] = (3, 6),
+        resume: Optional[Any] = None,
+        prefetch: Optional[int] = None,
         metrics_window: int = 2,
+        autopilot: Optional[Any] = None,
     ) -> Tuple[TrainState, Dict[str, float]]:
         """Host loop: step, and at step boundaries broadcast
         ``metric_sign * metrics[metric_key]`` to a duck-typed
-        ``reporter.broadcast(value, step=)``.
+        ``reporter.broadcast(value, step=)`` (where an early stop can
+        interrupt). The JAX ``fit``'s signature and meaning:
+
+        * ``checkpointer`` + ``checkpoint_every`` save the state every that
+          many steps (:class:`~maggy_tpu_torch.train.checkpoint.Checkpointer`,
+          asynchronous: the loop waits only for the copy to host memory).
+        * ``resume="auto"`` restores the checkpointer's latest step over
+          ``state`` (an int restores that step) and fast-forwards
+          ``data_iter`` by the steps already taken (``skip(n)`` where the
+          loader has it), so the trajectory continues where the interrupted
+          run left off; ``num_steps`` stays the TOTAL budget, and the result
+          carries ``resumed_from``. With no checkpoint, it is a fresh run.
+        * With a checkpointer, a preemption notice (SIGTERM, or
+          :func:`maggy_tpu_torch.resilience.preemption.request`) makes the
+          loop take one synchronous save at the current step and return
+          early with ``preempted = 1.0``.
+        * ``prefetch`` (default 2; ``MAGGY_TPU_PREFETCH`` overrides, 0
+          disables): batches flow through a
+          :class:`~maggy_tpu_torch.train.prefetch.DevicePrefetcher`, which
+          runs ``shard_batch`` and the host-to-device copy that many batches
+          ahead on a background thread. Consumption is capped at the steps
+          to run, so a shared iterator keeps its position; only an early
+          exit leaves up to ``prefetch`` extra batches consumed.
+        * ``profile_dir`` records a ``torch.profiler`` trace over
+          ``profile_steps=(start, stop)`` and writes it there as a Chrome
+          trace.
+        * ``autopilot`` is not ported yet (ROADMAP queue 1 item 9) and
+          raises.
 
         Lagged metrics drain: a broadcast reads the metrics of the step that
         just left a ``metrics_window``-deep window, so the host reads a value
         the card finished long ago and does not stall the queue of work;
-        ``metrics_window=0`` broadcasts the current step's value. Returns the
-        final step's metrics as floats plus ``steps_per_sec`` (wall time
-        measured after the final read, which waits for the card)."""
+        ``metrics_window=0`` broadcasts the current step's value. The
+        ``metrics_lag`` gauge records the realised lag.
+
+        Telemetry, under the JAX package's names, into the ambient recorder
+        (:func:`maggy_tpu_torch.telemetry.get`): a ``train_step`` span and a
+        ``step_time_ms`` gauge each step; ``compile_time_ms`` for the first
+        step, synchronised once — on the card that is warm-up (kernel and
+        library loading, the allocator's first blocks), not compilation;
+        ``step_time_ms_mean``, ``steps_per_sec``, ``tokens_per_sec`` and
+        ``mfu_est`` at the end; ``metrics_drain_ms`` per broadcast read;
+        ``resumed_step`` and the counters ``resilience.auto_resumes`` and
+        ``resilience.preempt_saves``; the prefetcher's ``input_wait_ms`` and
+        ``prefetch_depth``; a memory ledger (params, optimizer, staged
+        batches) reconciled on the time series' ~1 s tick; a flight-recorder
+        watchdog beat each step; and one trace per run with
+        ``train.run_start`` and ``train.run_end`` events. The returned
+        metrics carry the measured ``steps_per_sec`` (wall time after the
+        final read, which waits for the card) whatever the telemetry flag.
+        """
+        from maggy_tpu_torch import telemetry
+        from maggy_tpu_torch.resilience import chaos as _chaos
+        from maggy_tpu_torch.resilience import preemption as _preemption
+        from maggy_tpu_torch.telemetry import flightrec as _flightrec
+        from maggy_tpu_torch.telemetry import memtrack as _memtrack
+        from maggy_tpu_torch.telemetry import timeseries as _timeseries
+        from maggy_tpu_torch.telemetry import tracing as _tracing
+        from maggy_tpu_torch.train.prefetch import DevicePrefetcher, skip_batches
+
+        if autopilot is not None and autopilot is not False:
+            raise NotImplementedError("fit(autopilot=...) is not ported yet (ROADMAP queue 1 item 9)")
+        tel = telemetry.get()
+        resumed_from = None
+        skipped = 0
+        if resume is not None:
+            if checkpointer is None:
+                raise ValueError("fit(resume=...) requires a checkpointer")
+            target = checkpointer.latest_step() if resume == "auto" else int(resume)
+            if target is not None and target > state.step:
+                from maggy_tpu_torch.train.checkpoint import restore_zero_compat
+
+                start = state.step
+                state = restore_zero_compat(
+                    checkpointer,
+                    state,
+                    step=None if resume == "auto" else target,
+                    live_meta=self.checkpoint_meta(),
+                )
+                resumed_from = state.step
+                skipped = resumed_from - start
+                # the interrupted run consumed one batch per completed step
+                skip_batches(data_iter, skipped)
+                tel.count("resilience.auto_resumes")
+                tel.gauge("resumed_step", resumed_from)
+        # num_steps is the TOTAL budget; a resumed fit runs the remainder
+        num_steps = max(0, num_steps - skipped)
+        # a preemption notice -> one final synchronous save + early return;
+        # armed only when there is a checkpointer to save into
+        hook = _preemption.install() if checkpointer is not None else None
+        chaos = _chaos.get()
         step0 = state.step
+        preempted = False
         metrics: Dict[str, torch.Tensor] = {}
+        profiler = None
+        prof_start = min(profile_steps[0], max(0, num_steps - 2))
+        prof_stop = min(profile_steps[1], num_steps - 1)
+        # the training tier's device-memory accounts, reconciled against the
+        # card on the series tick
+        ledger = _memtrack.MemoryLedger()
+        ledger.register("params", _memtrack.array_bytes(state.params))
+        ledger.register("optimizer", _memtrack.array_bytes(state.optimizer.state))
+        depth = _prefetch_depth(prefetch)
+        prefetcher = None
+        if depth > 0 and num_steps > 0:
+            prefetcher = DevicePrefetcher(
+                data_iter,
+                self.shard_batch,
+                depth=depth,
+                max_items=num_steps,
+                telemetry_recorder=tel,
+                ledger=ledger,
+                device=self.device,
+            )
         window = max(0, int(metrics_window))
         pending: deque = deque()  # (loop index, in-flight metrics)
         ready = None  # newest entry aged out of the window
         last_bcast = -1
-        t0 = time.perf_counter()
-        for i in range(num_steps):
-            state, metrics = self.step(state, self.shard_batch(next(data_iter)))
-            pending.append((i, metrics))
-            while len(pending) > max(1, window):
-                ready = pending.popleft()
-            if reporter is not None and (i + 1) % report_every == 0:
-                src = pending[-1] if window == 0 else ready
-                if (src is None or src[0] <= last_bcast) and i == num_steps - 1:
-                    src = pending[0]  # final boundary: window not primed
-                if src is not None and src[0] > last_bcast:
-                    j, lagged = src
-                    last_bcast = j
-                    value = metric_sign * float(lagged[metric_key])
-                    reporter.broadcast(value, step=step0 + j + 1)
+        fit_t0 = time.perf_counter()
+        tokens_per_batch = 0
+        step_ms_sum = 0.0
+        run_trace = _tracing.new_trace_id()
+        trace_prev = _tracing.current()
+        _tracing.set_current(run_trace)
+        tel.event(
+            "train.run_start", trace=run_trace, num_steps=num_steps,
+            resumed_from=resumed_from, step0=step0,
+        )
+        wd = _flightrec.get()
+        wd.begin("train.step", detail=step0)
+        ts_store = _timeseries.SeriesStore()
+        try:
+            for i in range(num_steps):
+                wd.beat("train.step", detail=step0 + i)
+                if chaos is not None:
+                    # deterministic fault injection: a matching kill rule
+                    # raises WorkerLost here
+                    chaos.kill(tel.worker, step=step0 + i)
+                if hook is not None and hook.requested():
+                    checkpointer.save(step0 + i, state, meta=self.checkpoint_meta())
+                    checkpointer.wait()
+                    tel.count("resilience.preempt_saves")
+                    preempted = True
+                    break
+                if profile_dir is not None and profiler is None and i == prof_start:
+                    activities = [torch.profiler.ProfilerActivity.CPU]
+                    if self.device.type == "cuda":
+                        activities.append(torch.profiler.ProfilerActivity.CUDA)
+                    profiler = torch.profiler.profile(activities=activities)
+                    profiler.start()
+                if prefetcher is not None:
+                    sharded = next(prefetcher)
+                else:
+                    batch = next(data_iter)
+                    with tel.span("shard_batch", step=i):
+                        sharded = self.shard_batch(batch)
+                if i == 0 and isinstance(sharded, dict) and "tokens" in sharded:
+                    tokens_per_batch = int(np.prod(sharded["tokens"].shape))
+                t0 = time.perf_counter()
+                with tel.span("train_step", step=i):
+                    state, metrics = self.step(state, sharded)
+                    if i == 0 and tel.active:
+                        self._sync()  # the first sample covers the warm-up
+                dt_ms = (time.perf_counter() - t0) * 1e3
+                if i == 0:
+                    tel.gauge("compile_time_ms", dt_ms)
+                else:
+                    step_ms_sum += dt_ms
+                    tel.gauge("step_time_ms", dt_ms)
+                if ts_store.maybe_sample(tel):
+                    ledger.register("params", _memtrack.array_bytes(state.params))
+                    ledger.register("optimizer", _memtrack.array_bytes(state.optimizer.state))
+                    ledger.tick(store=ts_store, telemetry=tel, now=time.time())
+                pending.append((i, metrics))
+                while len(pending) > max(1, window):
+                    ready = pending.popleft()
+                if profiler is not None and profile_dir is not None and i >= prof_stop:
+                    self._sync()
+                    profiler.stop()
+                    _export_trace(profiler, profile_dir)
+                    profiler = None
+                    profile_dir = None  # one capture per fit
+                if reporter is not None and (i + 1) % report_every == 0:
+                    src = pending[-1] if window == 0 else ready
+                    if (src is None or src[0] <= last_bcast) and i == num_steps - 1:
+                        src = pending[0]  # final boundary: window not primed
+                    if src is not None and src[0] > last_bcast:
+                        j, lagged = src
+                        last_bcast = j
+                        tel.gauge("metrics_lag", i - j)
+                        t_drain = time.perf_counter()
+                        value = metric_sign * float(lagged[metric_key])
+                        tel.gauge("metrics_drain_ms", (time.perf_counter() - t_drain) * 1e3)
+                        reporter.broadcast(value, step=step0 + j + 1)
+                if checkpointer is not None and checkpoint_every and (i + 1) % checkpoint_every == 0:
+                    checkpointer.save(step0 + i + 1, state, meta=self.checkpoint_meta())
+        finally:
+            wd.end("train.step")
+            _tracing.set_current(trace_prev)
+            if prefetcher is not None:
+                prefetcher.close()
+            if profiler is not None:  # the loop ended or raised inside the window
+                profiler.stop()
+        tel.event("train.run_end", trace=run_trace, steps=num_steps, preempted=preempted)
         out = {k: float(v) for k, v in metrics.items()}
-        wall = time.perf_counter() - t0
+        if resumed_from is not None:
+            out["resumed_from"] = float(resumed_from)
+        if preempted:
+            out["preempted"] = 1.0
+        # measured after the float() reads above, which wait for the card
+        wall = time.perf_counter() - fit_t0
         if num_steps > 0 and wall > 0:
             out["steps_per_sec"] = num_steps / wall
+            tel.gauge("steps_per_sec", out["steps_per_sec"])
+            if num_steps > 1 and step_ms_sum > 0:
+                tel.gauge("step_time_ms_mean", step_ms_sum / (num_steps - 1))
+            if tokens_per_batch and tel.active:
+                from maggy_tpu_torch.telemetry import flops as _flops
+
+                tok_per_sec = tokens_per_batch * num_steps / wall
+                tel.gauge("tokens_per_sec", tok_per_sec)
+                mfu = _flops.estimate_mfu(tok_per_sec, _flops.param_count(state.model), [self.device])
+                if mfu is not None:
+                    tel.gauge("mfu_est", mfu)
         return state, out
+
+
+def _export_trace(profiler, profile_dir: str) -> str:
+    """Write a finished profiler window as a Chrome trace under
+    ``profile_dir``; returns the file's path."""
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    profiler.export_chrome_trace(path)
+    return path
 
 
 def _require_ring(spec: ShardingSpec) -> None:

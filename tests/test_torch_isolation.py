@@ -39,9 +39,13 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
         "import maggy_tpu_torch.serve, maggy_tpu_torch.models.generate, maggy_tpu_torch.telemetry\n"
         "import maggy_tpu_torch.experiment, maggy_tpu_torch.core.driver.hpo, maggy_tpu_torch.core.rpc\n"
         "import maggy_tpu_torch.optimizer, maggy_tpu_torch.telemetry.recorder, maggy_tpu_torch.models.mlp\n"
+        "import maggy_tpu_torch.train.checkpoint, maggy_tpu_torch.train.prefetch, maggy_tpu_torch.train.native_loader\n"
+        "import maggy_tpu_torch.train.sharded_dataset, maggy_tpu_torch.resilience.preemption\n"
+        "import maggy_tpu_torch.telemetry.timeseries, maggy_tpu_torch.telemetry.flops\n"
         "from maggy_tpu_torch.ops import _build\n"
+        "from maggy_tpu_torch.train import native_loader\n"
         "print(sorted(sys.modules))\n"
-        "print(len(_build._libs), 'triton' in sys.modules)\n"
+        "print(len(_build._libs), 'triton' in sys.modules, native_loader._LIB_TRIED)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
@@ -52,7 +56,7 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
     modules = ast.literal_eval(out[0])
     assert [m for m in modules if _forbidden(m)] == []
     assert "maggy_tpu_torch.train" in modules and "maggy_tpu_torch.serve.engine" in modules
-    assert out[1] == "0 False"  # no kernel library loaded, no triton
+    assert out[1] == "0 False False"  # no kernel or batcher library loaded, no triton
 
 
 def _sources():
@@ -134,3 +138,18 @@ def test_kernel_build_raises_without_nvcc(no_cuda, monkeypatch):
         pytest.skip("a CUDA toolkit is installed here")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def test_native_loader_compiles_the_ports_own_source():
+    """The batcher is built from ``maggy_tpu_torch/native/batcher.cpp`` into
+    the port's build directory, never from the JAX package's copy."""
+    from maggy_tpu_torch.train import native_loader
+
+    port = REPO / "maggy_tpu_torch"
+    assert native_loader.SOURCE == port / "native" / "batcher.cpp" and native_loader.SOURCE.exists()
+    assert native_loader.library_path().is_relative_to(port / "_build")
+    lib = native_loader._native_lib()
+    if lib is not None:  # a C++ compiler is present
+        assert Path(lib._name) == native_loader.library_path()
+    source = (port / "train" / "native_loader.py").read_text()
+    assert "maggy_tpu/native" not in source and "maggy_tpu.native" not in source

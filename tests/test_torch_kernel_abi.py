@@ -61,3 +61,31 @@ def test_the_parser_sees_a_cut_pointer():
                                      ctypes.c_longlong, ctypes.c_void_p]
     wrong = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
     assert prototypes(text)["x"] != wrong
+
+
+BATCHER_PROTOTYPE = re.compile(r"^(int64_t|void)\s+(mtl_\w+)\s*\(([^)]*)\)", re.M)
+C_TYPES = {"int64_t": ctypes.c_int64, "uint64_t": ctypes.c_uint64, "int32_t": ctypes.c_int32}
+
+
+def _batcher_ctypes(params: str):
+    out = []
+    for param in filter(None, (p.strip() for p in params.split(","))):
+        decl = " ".join(param.split())
+        out.append(ctypes.c_void_p if "*" in decl else C_TYPES[decl.rsplit(" ", 1)[0]])
+    return out
+
+
+def test_batcher_prototypes_match_the_c_source():
+    """``native_loader.PROTOTYPES`` against ``native/batcher.cpp``'s C ABI:
+    ``mtl_version``, ``mtl_perm`` and ``mtl_gather``."""
+    from maggy_tpu_torch.train import native_loader
+
+    found = {
+        name: (_batcher_ctypes(params), ctypes.c_int64 if ret == "int64_t" else None)
+        for ret, name, params in BATCHER_PROTOTYPE.findall(native_loader.SOURCE.read_text())
+    }
+    assert set(found) == set(native_loader.PROTOTYPES) == {"mtl_version", "mtl_perm", "mtl_gather"}
+    for name, (argtypes, restype) in found.items():
+        want_args, want_ret = native_loader.PROTOTYPES[name]
+        assert list(want_args) == argtypes, name
+        assert want_ret is restype, name

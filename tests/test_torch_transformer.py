@@ -172,9 +172,12 @@ def test_config_surface():
             tt.DecoderConfig.tiny(**kw)
         with pytest.raises(ValueError, match=msg):
             jt.DecoderConfig.tiny(**kw)
-    for policy in ("dots", "dots_attn"):
-        with pytest.raises(NotImplementedError):
-            tt.DecoderConfig.tiny(remat=True, remat_policy=policy)
+    # every JAX remat policy is ported; an unknown one raises in both
+    assert set(tt.REMAT_POLICIES) == set(jt.REMAT_POLICIES)
+    for policy in tt.REMAT_POLICIES:
+        assert tt.DecoderConfig.tiny(remat=True, remat_policy=policy).remat_policy == policy
+    with pytest.raises(ValueError, match="remat_policy"):
+        tt.DecoderConfig.tiny(remat=True, remat_policy="dots_everything")
     # the JAX config's training fields all exist in the port's
     jfields = {f.name for f in dataclasses.fields(jt.DecoderConfig)}
     tfields = {f.name for f in dataclasses.fields(tt.DecoderConfig)}

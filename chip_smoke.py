@@ -70,6 +70,30 @@ Phases, each printing one line:
             ``serve.engine.times``: prefill per bucket, a decode step with
             every slot busy beside its bound, and the device's busy share
             over it (torch.profiler).
+    serve.sched  the same requests through the serving stack: ``Engine``
+            with its defaults (the host tier on) behind the ``Scheduler`` and
+            a ``ServeServer`` on localhost, submitted by a ``ServeClient``
+            over the three QoS classes and two tenants. Every request done,
+            none failed, rejected or expired; every stream equal to
+            ``serve.engine``'s bit for bit; the prefix hits; no flash launch;
+            one decode shape and no recompile alert. TTFT, TPOT and queue
+            wait percentiles and tokens/s from SSTATS; with every slot
+            busy, the loop's decode step beside the same engine stepped
+            directly; a profile capture, forced on the loop's metrics
+            tick, that must write a torch.profiler trace.
+    serve.tier  page pressure: a pool of half the requests' worst case; the
+            shared-prefix requests best-effort in every slot, then the rest
+            premium. At least two preemptions, every victim best-effort,
+            every one spilled to host memory and swapped back in; then four
+            requests through the prefill handoff (``prefill_only``, a pack,
+            the scheduler's ``admit_from_kv``) and three shared-prefix
+            requests filled from the host tier's prefix pack. Every stream
+            equal to ``serve.engine``'s bit for bit; no request failed. The
+            spill, swap-in, ``prefill_only`` and ``admit_from_kv`` times.
+    serve.cli  after the weights are freed: ``python -m maggy_tpu_torch.serve
+            --config llama3_8b --slots 4`` as its own process, four requests
+            through ``ServeClient``, SIGTERM and exit 0 within 60 s; its
+            init time, start-up, first TTFT and peak memory.
 11. lagom.train  the ``train`` configuration as the train_fn of the port's
             ``lagom``: ``HyperparameterOptConfig(num_trials=2,
             optimizer="randomsearch", seed=0)`` over ``lr`` in [1e-5, 1e-4],
@@ -121,9 +145,11 @@ non-zero before that line. With no CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1524,12 +1550,14 @@ def drive_engine(engine, requests, order=None):
 
 def phase_serve_engine(torch, master, card: str, requests, num_slots=ENGINE_SLOTS, system=ENGINE_SYSTEM,
                        timed_steps=20, profiled_steps=10, buckets=PREFILL_BUCKETS):
-    """``Engine`` with its defaults (paged, page 16, prefix reuse, async):
-    the requests to completion; the greedy streams again paged-sync and
-    dense-async; every stream again admitted in a permuted order; each
-    prefix hit's first-token logits against a full prefill. Then the
-    numbers: prefill time per bucket, a steady decode step at every slot
-    busy beside its bound, and the device's busy share over it."""
+    """``Engine`` with its defaults (paged, page 16, prefix reuse, async,
+    the host tier): the requests to completion; the greedy streams again
+    paged-sync and dense-async; every stream again admitted in a permuted
+    order; each prefix hit's first-token logits against a full prefill.
+    Then the numbers: prefill time per bucket, a steady decode step at every
+    slot busy beside its bound, and the device's busy share over it.
+    Returns the paged-async streams by request id and that decode step's
+    ms, which the later serving phases are held to."""
     import gc
 
     from maggy_tpu_torch.models.generate import prefill
@@ -1602,7 +1630,7 @@ def phase_serve_engine(torch, master, card: str, requests, num_slots=ENGINE_SLOT
          card=card)
     if not ok:
         raise SystemExit(f"serve.engine failed: {checks}")
-    serve_engine_times(torch, fresh(), requests, card, timed_steps, profiled_steps, buckets)
+    return base, serve_engine_times(torch, fresh(), requests, card, timed_steps, profiled_steps, buckets)
 
 
 def serve_engine_times(torch, engine, requests, card, timed_steps, profiled_steps, buckets):
@@ -1667,6 +1695,369 @@ def serve_engine_times(torch, engine, requests, card, timed_steps, profiled_step
          top_kernels=[dict(ms=m, name=k, launches=c) for m, k, c in top],
          cache_lengths=lengths, max_memory_allocated_gib=_peak_gib(torch, dev), card=card)
     del engine
+    return step_ms
+
+
+def _wait(pred, timeout: float, what: str) -> None:
+    """Poll ``pred`` every 10 ms until it holds; fail the phase after
+    ``timeout`` seconds."""
+    deadline = time.time() + timeout
+    while not pred():
+        if time.time() > deadline:
+            raise SystemExit(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.01)
+
+
+def _submit(client, req, **kw) -> str:
+    """``req`` (a ``Request`` of ``engine_requests``) over ``client``'s SUBMIT."""
+    p = req.params
+    return client.submit(list(req.prompt), temperature=p.temperature, top_k=p.top_k, max_new=p.max_new,
+                         eos_id=p.eos_id, seed=p.seed, **kw)
+
+
+def _percentile(stats, signal: str, q: float):
+    from maggy_tpu_torch.telemetry.histogram import LatencyHistogram
+
+    return LatencyHistogram.from_dict(stats["latency"][signal]).percentile(q)
+
+
+def _timed(torch, dev, fn, out: list):
+    """``fn`` timed between device syncs into ``out`` (ms); returns its
+    result, and records nothing when it returns None (no tier admission)."""
+    def wrapper(*a, **kw):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        _sync(torch, dev)
+        if res is not None and res is not False:
+            out.append((time.perf_counter() - t0) * 1e3)
+        return res
+    return wrapper
+
+
+def _trace_kernels(path) -> int:
+    """CUDA kernel events in a Chrome trace written by torch.profiler."""
+    if not path or not os.path.exists(os.path.join(path, "trace.json")):
+        return 0
+    with open(os.path.join(path, "trace.json")) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def phase_serve_sched(torch, master, card: str, requests, base, engine_step_ms, num_slots=ENGINE_SLOTS,
+                      long_new=512, timed_s=3.0, direct_steps=20, timeout_s=600):
+    """``Engine(num_slots=8)`` with its defaults (paged, the host tier on)
+    behind the ``Scheduler`` and a ``ServeServer`` on localhost: a
+    ``ServeClient`` submits ``serve.engine``'s requests over two tenants:
+    the shared-prefix ones premium and standard (the first wave, as in
+    ``serve.engine``), the rest best-effort, so admission keeps the
+    request order and no class waits behind a lower one. Every request done, none failed, rejected or expired;
+    every stream equal to ``serve.engine``'s paged-async stream bit for bit;
+    the prefix hits; no flash launch; one decode shape and no recompile
+    alert. Then every slot busy with long requests: the loop's decode step
+    (the median gap between its steps) beside the same engine stepped
+    directly once the server stops, and a profile capture forced on the
+    loop's metrics tick that must write a torch.profiler trace."""
+    import gc
+    import tempfile
+
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.serve import Engine, Scheduler, ServeClient, ServeServer
+    from maggy_tpu_torch.telemetry.alerts import ALERT_FIRING
+
+    dev = master.embedding.device
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    engine = Engine(master.cfg, master, num_slots=num_slots, device=dev)
+    sched = Scheduler(engine)
+    server = ServeServer(sched)
+    addr = server.start(host="127.0.0.1", port=0)
+    classes = ["premium"] * (ENGINE_SHARED // 2) + ["standard"] * (ENGINE_SHARED - ENGINE_SHARED // 2)
+    classes += ["best_effort"] * (len(requests) - ENGINE_SHARED)
+    flash.reset_launches()
+    try:
+        with ServeClient(addr, server.secret) as client:
+            t0 = time.perf_counter()
+            ids = {r.id: _submit(client, r, qos=classes[i], tenant=("acme", "bulk")[i % 2])
+                   for i, r in enumerate(requests)}
+            snaps = {rid: client.result(sid, timeout=timeout_s) for rid, sid in ids.items()}
+            run_s = time.perf_counter() - t0
+            stats = client.stats()
+            # every slot busy: the decode step as the loop runs it
+            for r in requests[:num_slots]:
+                client.submit(list(r.prompt), max_new=long_new)
+            _wait(lambda: engine.slots.active_count == num_slots, timeout_s, "every slot busy")
+            time.sleep(0.5)
+            # the loop's steps, stamped where the loop calls them
+            stamps, step = [], engine.step
+
+            def stamped():
+                out = step()
+                stamps.append(time.perf_counter())
+                return out
+
+            engine.step = stamped
+            time.sleep(timed_s)
+            engine.step = step
+            sched_step_ms = statistics.median(b - a for a, b in zip(stamps, stamps[1:])) * 1e3
+            with tempfile.TemporaryDirectory() as tmp:
+                # forced where the scheduler ticks it, on its loop thread:
+                # a profiler started in one thread while another launches
+                # work crashed one of five card runs (a segfault)
+                sched.profcap.configure(dump_dir=tmp)
+                paths, tick = [], sched._metrics_tick
+
+                def tick_then_capture(now, wd=None):
+                    tick(now, wd)
+                    if not paths:
+                        paths.append(sched.profcap.tick([{"event": ALERT_FIRING, "alert": "alert.hbm_headroom"}],
+                                                        now=now))
+
+                sched._metrics_tick = tick_then_capture
+                _wait(lambda: paths, 30, "the loop's forced profile capture")
+                sched._metrics_tick = tick
+                capture = sched.profcap.last_capture or {}
+                trace_file = bool(paths[0]) and os.path.exists(os.path.join(paths[0], "trace.json"))
+                trace_kernels = _trace_kernels(paths[0])
+            final = client.stats()
+    finally:
+        server.stop()
+    # the same engine and rows, stepped directly from this thread: the
+    # loop's cost per step, without another engine or another call between
+    direct_rows = engine.slots.active_count
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    for _ in range(direct_steps):
+        engine.step()
+    _sync(torch, dev)
+    direct_step_ms = (time.perf_counter() - t1) * 1e3 / direct_steps
+    streams = {rid: s["tokens"] for rid, s in snaps.items()}
+    greedy = [r.id for r in requests if r.params.temperature == 0.0]
+    checks = dict(
+        done=sum(s["state"] == "done" for s in snaps.values()),
+        failed=stats["requests_failed"], rejected=stats["requests_rejected"], expired=stats["requests_expired"],
+        greedy_equal_serve_engine=all(streams[i] == base[i] for i in greedy),
+        all_streams_equal_serve_engine=streams == base,
+        differing=[i for i in base if streams.get(i) != base[i]],
+        prefix_hits=stats["prefix_hits"], preemptions=stats["preemptions"],
+        no_kernel_launched=all(v == 0 for v in flash.LAUNCHES.values()),
+        decode_shapes=final["compile_counts"]["decode"],
+        recompile_alert=any(a["alert"] == "alert.recompile" for a in final["alerts"]),
+        profiler=capture.get("profiler"), trace_file=trace_file, trace_kernel_events=trace_kernels,
+        direct_rows=direct_rows,
+    )
+    ok = (checks["done"] == len(requests) and not (checks["failed"] or checks["rejected"] or checks["expired"])
+          and checks["all_streams_equal_serve_engine"] and checks["prefix_hits"] >= ENGINE_SHARED - 1
+          and checks["no_kernel_launched"] and checks["decode_shapes"] == 1 and not checks["recompile_alert"]
+          and checks["profiler"] == "torch.profiler" and trace_file and direct_rows == num_slots)
+    emit("serve.sched", ok=ok, slots=num_slots, requests=len(requests), run_s=run_s, **checks,
+         ttft_ms_p50=stats["ttft_ms_p50"], ttft_ms_p99=stats["ttft_ms_p99"],
+         tpot_ms_p50=stats["tpot_ms_p50"], tpot_ms_p99=_percentile(stats, "tpot_ms", 0.99),
+         queue_wait_ms_p50=stats["queue_wait_ms_p50"], queue_wait_ms_p99=_percentile(stats, "queue_wait_ms", 0.99),
+         e2e_ms_p50=stats["e2e_ms_p50"], tokens_per_sec=stats["tokens_per_sec"],
+         sched_decode_step_ms=sched_step_ms, direct_decode_step_ms=direct_step_ms,
+         sched_over_direct=sched_step_ms / direct_step_ms, engine_times_decode_step_ms=engine_step_ms,
+         qos=stats["qos"]["counters"],
+         tier={k: v for k, v in stats["tier"].items() if k != "prefix_digests"},
+         max_memory_allocated_gib=_peak_gib(torch, dev), card=card)
+    if not ok:
+        raise SystemExit(f"serve.sched failed: {checks}")
+    del engine, sched, server
+
+
+def phase_serve_tier(torch, master, card: str, requests, base, num_slots=ENGINE_SLOTS, system=ENGINE_SYSTEM,
+                     handoff=(8, 9, 10, 11), refills=3, timeout_s=900):
+    """Page pressure with the host tier: a pool of half the requests' worst
+    case (never less than the premium ones' together, so a premium request
+    is never a victim). The shared-prefix requests, best-effort, fill the
+    slots; then the others arrive premium and preempt them. Every victim
+    best-effort, every preemption spilled to host memory and swapped back
+    in; streams equal to ``serve.engine``'s bit for bit. Then four requests
+    through the prefill handoff (``prefill_only`` before the loop runs, a
+    pack through ``Request.prefilled`` and the scheduler's
+    ``admit_from_kv``), and three shared-prefix requests again with nothing
+    resident on the card: prefix fills from the host tier. Streams equal
+    ``serve.engine``'s bit for bit throughout."""
+    import gc
+
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.serve import Engine, Scheduler, ServeClient, ServeServer
+    from maggy_tpu_torch.serve.prefix import PrefixIndex
+
+    cfg, dev = master.cfg, master.embedding.device
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    shared = [r for r in requests if r.prompt[:system] == requests[0].prompt[:system]]
+    others = [r for r in requests if r not in shared]
+    page = SERVE_PAGE
+    worst = {r.id: -(-(len(r.prompt) + r.params.max_new) // page) for r in requests}
+    num_pages = max(sum(worst.values()) // 2, sum(worst[r.id] for r in others) + 1) + 1
+    engine = Engine(cfg, master, num_slots=num_slots, num_pages=num_pages, page_size=page, device=dev)
+    times = {k: [] for k in ("spill_ms", "prefix_spill_ms", "swap_in_ms", "prefill_only_ms", "admit_from_kv_ms")}
+    engine.spill_stream = _timed(torch, dev, engine.spill_stream, times["spill_ms"])
+    spill_prefix = engine._spill_prefix
+
+    def timed_spill_prefix(slot):
+        n = engine.tier_policy.prefix_spills
+        _sync(torch, dev)
+        t = time.perf_counter()
+        spill_prefix(slot)
+        _sync(torch, dev)
+        if engine.tier_policy.prefix_spills > n:
+            times["prefix_spill_ms"].append((time.perf_counter() - t) * 1e3)
+
+    engine._spill_prefix = timed_spill_prefix
+    engine._tier_admit = _timed(torch, dev, engine._tier_admit, times["swap_in_ms"])
+    engine.admit_from_kv = _timed(torch, dev, engine.admit_from_kv, times["admit_from_kv_ms"])
+    packs = {}
+    for i in handoff:
+        r = requests[i]
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        packs[r.id] = engine.prefill_only(r.prompt, r.params)
+        times["prefill_only_ms"].append((time.perf_counter() - t0) * 1e3)
+    pack_bytes = [p["k"].numel() * p["k"].element_size() * 2 for p in packs.values()]
+    sched = Scheduler(engine)
+    server = ServeServer(sched)
+    addr = server.start(host="127.0.0.1", port=0)
+    flash.reset_launches()
+    streams = {}
+    try:
+        with ServeClient(addr, server.secret) as client:
+            t0 = time.perf_counter()
+            ids = {r.id: _submit(client, r, qos="best_effort", tenant="bulk") for r in shared}
+            _wait(lambda: engine.slots.active_count == num_slots or sched.stats()["requests_done"],
+                  timeout_s, "the best-effort requests in every slot")
+            ids.update({r.id: _submit(client, r, qos="premium", tenant="acme") for r in others})
+            streams.update({rid: client.result(sid, timeout=timeout_s)["tokens"] for rid, sid in ids.items()})
+            pressure_s = time.perf_counter() - t0
+            after_pressure = client.stats()
+            # the prefill handoff: packs made before the loop ran
+            handed = {rid: sched.submit_prefilled(requests[i].prompt, requests[i].params, packs[rid],
+                                                  qos="standard", tenant="acme")
+                      for i, rid in zip(handoff, packs)}
+            _wait(lambda: all(r.state in ("done", "failed", "cancelled", "expired") for r in handed.values()),
+                  timeout_s, "the handed-off requests")
+            streams.update({f"handoff:{rid}": r.tokens for rid, r in handed.items()})
+            # nothing resident on the card now: shared-prefix requests fill
+            # from the host tier's prefix pack (one whose own prompt is not
+            # the pack's, so the shared length is the system prefix's)
+            got = engine.tier.get(f"px:{PrefixIndex.digest(tuple(shared[0].prompt))}")
+            pack_tokens = tuple(got[1]["tokens"]) if got else ()
+            again = [r for r in shared if tuple(r.prompt) != pack_tokens][:refills]
+            refill_ids = {r.id: _submit(client, r, qos="standard", tenant="bulk") for r in again}
+            streams.update({f"refill:{rid}": client.result(sid, timeout=timeout_s)["tokens"]
+                            for rid, sid in refill_ids.items()})
+            final = client.stats()
+    finally:
+        server.stop()
+    tier = final["tier"]
+    qos = final["qos"]["counters"]
+    preemptions = final["preemptions"]
+    bytes_per_page = 2 * cfg.n_layers * page * cfg.n_kv_heads * cfg.head_dim * torch.empty((), dtype=cfg.dtype).element_size()
+    want = {**base, **{f"handoff:{rid}": base[rid] for rid in packs}, **{f"refill:{r.id}": base[r.id] for r in again}}
+    checks = dict(
+        requests_done=final["requests_done"], requests_failed=final["requests_failed"],
+        preemptions=preemptions,
+        victims_best_effort=qos["best_effort"]["preempted"] == preemptions
+        and qos["premium"]["preempted"] == qos["standard"]["preempted"] == 0,
+        resume_spills=tier["spills"] - tier["prefix_spills"], resume_fills=tier["fills"] - tier["prefix_fills"],
+        tier_spills=tier["spills"], tier_fills=tier["fills"], prefix_fills=tier["prefix_fills"],
+        streams_compared=len(want), streams_equal_serve_engine=all(streams.get(k) == v for k, v in want.items()),
+        differing=[k for k, v in want.items() if streams.get(k) != v],
+        no_kernel_launched=all(v == 0 for v in flash.LAUNCHES.values()),
+    )
+    ok = (checks["requests_failed"] == 0 and checks["requests_done"] == len(requests) + len(packs) + len(again)
+          and preemptions >= 2 and checks["victims_best_effort"]
+          and checks["resume_spills"] == preemptions and checks["resume_fills"] == preemptions
+          and checks["tier_spills"] >= 1 and checks["tier_fills"] >= 1 and checks["prefix_fills"] >= 1
+          and len(again) == refills and checks["streams_equal_serve_engine"] and checks["no_kernel_launched"])
+    emit("serve.tier", ok=ok, slots=num_slots, num_pages=num_pages, worst_case_pages=sum(worst.values()),
+         pressure_s=pressure_s, **checks, preemptions_after_pressure=after_pressure["preemptions"],
+         spilled_pages=tier["spilled_pages"], filled_pages=tier["filled_pages"], bytes_per_page=bytes_per_page,
+         pages_per_spill=(tier["spilled_pages"] / tier["spills"]) if tier["spills"] else None,
+         host_bytes=tier["host_bytes"], host_evictions=tier["host_evictions"], pack_bytes=pack_bytes, **times,
+         max_memory_allocated_gib=_peak_gib(torch, dev), card=card)
+    if not ok:
+        raise SystemExit(f"serve.tier failed: {checks}")
+    del engine, sched, server
+
+
+def phase_serve_cli(torch, card: str, slots=4, n=4, prompt_len=256, max_new=32, start_s=600, timeout_s=300):
+    """``python -m maggy_tpu_torch.serve --config llama3_8b --slots 4`` as its
+    own process on ``cuda:0`` (random init from its seed): its address and
+    secret read from its stderr, four requests through ``ServeClient``, all
+    done; SIGTERM, then exit 0 within 60 s. Prints the parameter init time,
+    the process's start-up, the first request's TTFT and its peak memory.
+    Every wait has its own timeout, and the process is killed if the phase
+    fails."""
+    import queue
+    import re
+    import signal
+    import threading
+
+    from maggy_tpu_torch.models import DecoderConfig
+    from maggy_tpu_torch.serve import ServeClient
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "maggy_tpu_torch.serve", "--config", "llama3_8b", "--slots", str(slots),
+           "--host", "127.0.0.1", "--port", "0"]
+    lines: "queue.Queue[str]" = queue.Queue()
+    log = []
+
+    def expect(pattern: str, timeout: float):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            try:
+                line = lines.get(timeout=max(0.0, deadline - time.time()))
+            except queue.Empty:
+                break
+            log.append(line.rstrip())
+            m = re.search(pattern, line)
+            if m:
+                return m
+        raise SystemExit(f"serve.cli: no {pattern!r} within {timeout} s; stderr: {log[-20:]}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stderr], daemon=True).start()
+    try:
+        init_s = float(expect(r"params from .* in ([\d.]+)s", start_s).group(1))
+        m = expect(r"listening on ([\d.]+):(\d+)", start_s)
+        addr = (m.group(1), int(m.group(2)))
+        secret = expect(r"secret: (\S+)", 30).group(1)
+        up_s = time.perf_counter() - t0
+        gen = torch.Generator().manual_seed(9)
+        vocab = DecoderConfig.llama3_8b().vocab_size
+        prompts = [torch.randint(0, vocab, (prompt_len,), generator=gen).tolist() for _ in range(n)]
+        with ServeClient(addr, secret) as client:
+            t1 = time.perf_counter()
+            first = client.result(client.submit(prompts[0], max_new=max_new), timeout=timeout_s)
+            first_s = time.perf_counter() - t1
+            rest = [client.submit(p, max_new=max_new, seed=i) for i, p in enumerate(prompts[1:], 1)]
+            snaps = [first] + [client.result(rid, timeout=timeout_s) for rid in rest]
+            stats = client.stats()
+        proc.send_signal(signal.SIGTERM)
+        t2 = time.perf_counter()
+        rc = proc.wait(timeout=60)
+        exit_s = time.perf_counter() - t2
+        peak = float(expect(r"peak ([\d.]+) GiB", 30).group(1))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    ok = (rc == 0 and all(s["state"] == "done" and s["n_tokens"] == max_new for s in snaps)
+          and stats["requests_failed"] == 0)
+    emit("serve.cli", ok=ok, cmd=" ".join(cmd[1:]), exit_code=rc, exit_s=exit_s, params_init_s=init_s,
+         startup_s=up_s, first_ttft_ms=first["ttft_ms"], first_request_s=first_s,
+         done=sum(s["state"] == "done" for s in snaps), tpot_ms_p50=stats["tpot_ms_p50"],
+         peak_allocated_gib=peak, card=card)
+    if not ok:
+        raise SystemExit(f"serve.cli failed: rc {rc}, states {[s['state'] for s in snaps]}")
 
 
 def phase_lagom_train(torch, cfg, seq: int, steps: int, card: str, train_step_ms):
@@ -1856,6 +2247,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after each train phase, profile two steps by kind of kernel")
     args = ap.parse_args(argv)
+    # a crash in native code prints every thread's Python stack first
+    faulthandler.enable()
 
     import torch
 
@@ -1906,8 +2299,17 @@ def main(argv=None) -> int:
     phase_serve_model(torch, master, card)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_serve_engine(torch, master, card, engine_requests(torch, master.cfg))
+    requests = engine_requests(torch, master.cfg)
+    streams, step_ms = phase_serve_engine(torch, master, card, requests)
+    # the serving stack over the same weights: the scheduler behind the RPC
+    # server, then page pressure with the host tier and the prefill
+    # handoff; then the CLI in its own process, after the weights are gone
+    phase_serve_sched(torch, master, card, requests, streams, step_ms)
+    phase_serve_tier(torch, master, card, requests, streams)
     del master
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_cli(torch, card)
     # the HPO control plane on top: the `train` configuration as two trials
     phase_lagom_train(torch, DecoderConfig.llama3_8b(n_layers=N_LAYERS), S, LAGOM_STEPS, card, train_step_ms)
     # the rest of the Trainer: checkpoints, the preemption save and resume

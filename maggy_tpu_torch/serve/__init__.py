@@ -1,32 +1,73 @@
-"""Continuous-batching serving: the engine and the host-side pieces it uses.
+"""Continuous-batching serving: the engine, its scheduler and the RPC stack.
 
-Counterpart of :mod:`maggy_tpu.serve` as far as its :class:`Engine`: a
-fixed-slot KV-cache engine whose one decode program serves a churning
-request population (prefill into free slots, eviction on EOS/``max_new``),
-with paged KV, prefix reuse and asynchronous decode, over port-owned copies
-of the slot manager, prefix index, block allocator, page table, request and
-QoS modules. The scheduler, the RPC server and client, the host-DRAM tier
-and the fleet follow in later slices (ROADMAP queue 1 item 6).
+Counterpart of :mod:`maggy_tpu.serve` on one device: a fixed-slot KV-cache
+engine whose one decode program serves a churning request population
+(prefill into free slots, eviction on EOS/``max_new``), with paged KV,
+prefix reuse, asynchronous decode, the host-DRAM KV tier and the
+disaggregated-prefill handoff; the QoS-aware :class:`Scheduler` (admission
+by class, quotas, priority preemption); and the RPC front-end
+(:class:`ServeServer`), :class:`ServeClient`, the traffic replay of
+:mod:`~maggy_tpu_torch.serve.loadgen` and the CLI. The fleet (router,
+replicas, autoscaler) is ROADMAP queue 1 item 6e.
 
-    from maggy_tpu_torch.serve import Engine, Request, SamplingParams
-    engine = Engine(cfg, model, num_slots=8)          # model: a trained Decoder
-    slot, first = engine.admit(Request(prompt=[1, 2, 3], params=SamplingParams(max_new=16)))
-    tokens = engine.step().tokens                      # {slot: token}
+    # server:  python -m maggy_tpu_torch.serve --config llama3_8b --slots 8
+    # client:
+    from maggy_tpu_torch.serve import ServeClient
+    client = ServeClient((host, port), secret)
+    tokens = client.generate([1, 2, 3], max_new=16)
+
+In-process use (no sockets): build ``Engine`` + ``Scheduler`` directly.
 """
 
-from maggy_tpu_torch.serve.engine import Engine
-from maggy_tpu_torch.serve.paging import BlockAllocator, OutOfPagesError, PageTable
-from maggy_tpu_torch.serve.prefix import PrefixIndex
-from maggy_tpu_torch.serve.request import Request, SamplingParams
-from maggy_tpu_torch.serve.slots import SlotManager
+from maggy_tpu_torch.serve.client import ServeClient  # noqa: F401
+from maggy_tpu_torch.serve.engine import Engine  # noqa: F401
+from maggy_tpu_torch.serve.loadgen import (  # noqa: F401
+    Arrival,
+    Burst,
+    TenantMix,
+    TrafficReplay,
+    TrafficSpec,
+)
+from maggy_tpu_torch.serve.paging import (  # noqa: F401
+    BlockAllocator,
+    OutOfPagesError,
+    PageTable,
+)
+from maggy_tpu_torch.serve.prefix import PrefixIndex  # noqa: F401
+from maggy_tpu_torch.serve.qos import (  # noqa: F401
+    BEST_EFFORT,
+    PREMIUM,
+    QOS_CLASSES,
+    STANDARD,
+    QosQueue,
+    QuotaLedger,
+)
+from maggy_tpu_torch.serve.request import Request, SamplingParams  # noqa: F401
+from maggy_tpu_torch.serve.scheduler import Scheduler  # noqa: F401
+from maggy_tpu_torch.serve.server import ServeServer  # noqa: F401
+from maggy_tpu_torch.serve.slots import SlotManager  # noqa: F401
 
 __all__ = [
+    "Arrival",
+    "BEST_EFFORT",
     "BlockAllocator",
+    "Burst",
     "Engine",
     "OutOfPagesError",
+    "PREMIUM",
     "PageTable",
     "PrefixIndex",
+    "QOS_CLASSES",
+    "QosQueue",
+    "QuotaLedger",
+    "STANDARD",
+    "Scheduler",
+    "ServeServer",
+    "ServeClient",
+    "SlotManager",
     "Request",
     "SamplingParams",
-    "SlotManager",
+    "TenantMix",
+    "TrafficReplay",
+    "TrafficSpec",
 ]

@@ -52,9 +52,21 @@ the same values the model's per-forward cast produces, without re-reading
 the fp32 masters on every decoded token. Norm scales and the embedding stay
 the fp32 masters (multiplied in fp32, gathered then cast, as before).
 
-Not here yet: the host-DRAM KV tier (``tier=True``; ROADMAP queue 1 item
-6b) and disaggregated prefill (``prefill_only``/``admit_from_kv``; item 6c)
-raise ``NotImplementedError``; a mesh raises too (item 7).
+**Host-DRAM KV tier** (on by default under a paged cache;
+``MAGGY_TPU_SERVE_TIER=0`` turns it off, ``MAGGY_TPU_SERVE_TIER_PAGES`` sizes
+it, default twice the pool): a preempted stream's valid pages are spilled
+to host memory before its slot is released (:meth:`spill_stream`, a resume
+pack) and a released prompt's full pages are kept there as a prefix pack;
+admission swaps a matching pack back into fresh pages and prefills only the
+suffix. A capture is a gather of the pool on the engine's stream followed by
+a copy to the host, so it is ordered after every decode step already
+enqueued; a swap-in is an ``index_copy_`` enqueued before the suffix
+prefill that reads it.
+
+**Disaggregated prefill**: :meth:`prefill_only` runs one prompt through a
+one-row dense cache of its own (slots and pages untouched) and returns its
+K/V as CPU tensors; :meth:`admit_from_kv` writes such a pack into a slot
+(through fresh pages when paged). A mesh raises (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -70,11 +82,12 @@ from torch import nn
 
 from maggy_tpu_torch.exceptions import BadArgumentsError
 from maggy_tpu_torch.models.generate import init_cache
-from maggy_tpu_torch.models.transformer import Decoder, Dense
+from maggy_tpu_torch.models.transformer import Decoder, Dense, KVCache, _read_chunk
 from maggy_tpu_torch.serve.paging import BlockAllocator, OutOfPagesError, PageTable
 from maggy_tpu_torch.serve.prefix import PrefixIndex
 from maggy_tpu_torch.serve.request import Request
 from maggy_tpu_torch.serve.slots import SlotManager, SlotOccupiedError
+from maggy_tpu_torch.serve.tier import HostPagePool, TieringPolicy
 from maggy_tpu_torch.telemetry import NULL, memtrack
 from maggy_tpu_torch.util import resolve_device
 
@@ -88,9 +101,6 @@ MIN_PREFILL_BUCKET = 8
 
 # default KV page size (tokens) for the paged cache; must divide max_seq_len
 DEFAULT_PAGE_SIZE = 16
-
-_TIER_ITEM = "ROADMAP queue 1 item 6b"
-_DISAGG_ITEM = "ROADMAP queue 1 item 6c"
 
 _M32 = 0xFFFFFFFF
 
@@ -211,6 +221,8 @@ class Engine:
         num_pages: Optional[int] = None,
         max_pages_per_req: Optional[int] = None,
         tier: Optional[bool] = None,
+        tier_host_pages: Optional[int] = None,
+        tier_low_water_pct: Optional[float] = None,
         device=None,
     ):
         if cfg.decode:
@@ -221,9 +233,11 @@ class Engine:
             raise NotImplementedError(
                 "a sharded engine belongs to the multi-device slice (ROADMAP queue 1 item 7)"
             )
-        if tier:
-            raise NotImplementedError(f"the host-DRAM KV tier is not ported yet ({_TIER_ITEM})")
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the card this engine allocates on, named: the scheduler's loop
+            # thread makes it current
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.cfg = cfg
         self.params = params.state_dict() if isinstance(params, nn.Module) else dict(params)
         self.slots = SlotManager(num_slots)
@@ -271,6 +285,21 @@ class Engine:
         self._last_page_gauges = None
         # per-slot high-water page count while resident (cleared in release)
         self._peak_pages: Dict[int, int] = {}
+
+        # ---- host-DRAM KV tier: a paged-cache feature, off in dense mode
+        if tier is None:
+            tier = os.environ.get("MAGGY_TPU_SERVE_TIER", "1").lower() not in ("0", "false", "off")
+        self._tier_pages_explicit = tier_host_pages is not None
+        if self.paged and tier:
+            if tier_host_pages is None:
+                tier_host_pages = int(os.environ.get("MAGGY_TPU_SERVE_TIER_PAGES", 2 * self.num_pages))
+            self.tier = HostPagePool(int(tier_host_pages), telemetry_recorder=self.telemetry,
+                                     pin_memory=self.device.type == "cuda")
+            self.tier_policy = (TieringPolicy(low_water_pct=float(tier_low_water_pct))
+                                if tier_low_water_pct is not None else TieringPolicy())
+        else:
+            self.tier = None
+            self.tier_policy = None
 
         # distinct input shapes per program (see compile_counts)
         self._shapes: Dict[str, set] = {"decode": set(), "prefill": set(), "admit": set(), "prefix_admit": set()}
@@ -344,8 +373,12 @@ class Engine:
         ``slot``'s row, whose cache length is ``start``; pin the row's length
         to ``plen`` and sample the first token from the logit at ``plen-1``.
         Returns the token as a [1] device tensor."""
+        self.seeds[slot] = _seed64(p.seed)
+        return self._prefill_into(self.cache.row(slot), tokens, start, plen, p, gen0)
+
+    def _prefill_into(self, row: KVCache, tokens: np.ndarray, start: int, plen: int, p, gen0: int):
+        """:meth:`_prefill_row` through any one-row cache ``row``."""
         bucket = tokens.shape[1]
-        row = self.cache.row(slot)
         row.index.fill_(start)
         positions = torch.arange(start, start + bucket, dtype=torch.int32, device=self.device)[None]
         logits = self.model(_to_device(tokens, self.device), positions, cache=row, kv_len=start + bucket)
@@ -355,7 +388,6 @@ class Engine:
         last = logits[0, plen - start - 1].clone()
         self.last_admit_logits = last
         temp, top_k, seed, g = self._scalars(p.temperature, p.top_k, p.seed, gen0)
-        self.seeds[slot] = _seed64(p.seed)
         return sample_rows(last[None], temp, top_k, seed, g)
 
     def _decode(self, prev_tokens, host_tokens, use_prev, pos, active, temp, top_k, gen_idx, kv_len: int):
@@ -424,9 +456,12 @@ class Engine:
         slot = self.slots.free_slots()[0]
         reuse = self._match_prefix(prompt)
         with torch.no_grad():
-            if self.paged:
+            tok = None
+            if self.tier is not None:
+                tok = self._try_tier_admit(prompt, p, slot, gen0, reuse, request)
+            if tok is None and self.paged:
                 tok = self._admit_paged(prompt, p, slot, gen0, reuse)
-            else:
+            elif tok is None:
                 tok = self._admit_dense(prompt, p, slot, gen0, reuse)
         # claim the slot only after every device op succeeded — a throwing
         # prefill must not leak an occupied slot bound to a dead request
@@ -553,19 +588,304 @@ class Engine:
             return None
         return src, shared
 
-    # ---------------------------------------------- tier and disaggregation
+    # ------------------------------------------------- host-DRAM KV tier
+
+    def _tier_capture_pages(self, page_ids) -> Dict[str, torch.Tensor]:
+        """The pool pages ``page_ids`` as one ``[n, L, P, Kh, D]`` stack per
+        cache leaf, gathered on the engine's stream (so after every step
+        already enqueued); the host pool copies them out."""
+        ids = torch.tensor([int(p) for p in page_ids], dtype=torch.long, device=self.device)
+        return {name: buf.index_select(1, ids).movedim(1, 0).contiguous()
+                for name, buf in (("k", self.cache.k), ("v", self.cache.v))}
+
+    def _tier_write_pages(self, page_ids, blocks) -> None:
+        """Scatter host page blocks back into the pool at ``page_ids`` — the
+        inverse of :meth:`_tier_capture_pages`, enqueued before the suffix
+        prefill that reads them."""
+        ids = torch.tensor([int(p) for p in page_ids], dtype=torch.long, device=self.device)
+        for name, buf in (("k", self.cache.k), ("v", self.cache.v)):
+            b = blocks[name].to(self.device, non_blocking=True)
+            buf.index_copy_(1, ids, b.movedim(0, 1).to(buf.dtype))
 
     def spill_stream(self, slot: int, pressure: bool = False) -> bool:
-        """The host-DRAM tier's resume pack; with the tier off (the JAX
-        engine's own off mode, the only one ported) there is nothing to
-        spill: False, no side effects."""
-        return False
+        """Capture a resident stream's valid KV pages into the host tier as a
+        resume pack (``rid:<id>``) — the scheduler calls this immediately
+        BEFORE preempt-releasing the slot, so re-admission becomes a swap-in
+        instead of a full re-prefill. Valid rows are ``[0, len(prompt+tokens)
+        - 1)``: prefill wrote the prompt's rows, each drained decode step
+        wrote one more, and the newest sampled token was never fed back —
+        exactly the rows re-prefill would recompute. False (no side effects)
+        when the tier is off, the slot is empty, or the pack does not fit the
+        host budget."""
+        if self.tier is None:
+            return False
+        st = self.slots.get(slot)
+        if st is None:
+            return False
+        tokens = [int(t) for t in st.request.prompt] + [int(t) for t in st.request.tokens]
+        valid = len(tokens) - 1
+        if valid < 1:
+            return False
+        pages = self.page_table.pages(slot)
+        need = (valid - 1) // self.page_size + 1
+        if len(pages) < need:
+            return False
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            blocks = self._tier_capture_pages(pages[:need])
+        ok = self.tier.put(f"rid:{st.request.id}", blocks,
+                           {"tokens": tuple(tokens), "valid": valid, "kind": "resume"})
+        if ok:
+            self.tier_policy.note_spill(need, pressure=pressure)
+            self.telemetry.count("tier.spills")
+            self.telemetry.count("tier.spilled_pages", need)
+            if pressure:
+                self.telemetry.count("tier.pressure_spills")
+            self.telemetry.histogram("tier.spill_ms", (time.perf_counter() - t0) * 1e3)
+        return ok
+
+    def _spill_prefix(self, slot: int) -> None:
+        """On release, park the departing prompt's full KV pages in the host
+        tier as a prefix pack (``px:<digest>``) so a later request sharing
+        the prefix swaps it in instead of re-prefilling — prefix reuse that
+        survives eviction. Gated to prompts of at least one full page."""
+        if self.tier is None:
+            return
+        prompt = self.prefix_index.resident().get(slot)
+        if not prompt:
+            return
+        prompt = tuple(int(t) for t in prompt)
+        if len(prompt) < self.page_size:
+            return  # under one page: re-prefill beats a pack round trip
+        pages = self.page_table.pages(slot)
+        valid = min(len(prompt), len(pages) * self.page_size)
+        if valid < self.page_size:
+            return
+        need = (valid - 1) // self.page_size + 1
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            blocks = self._tier_capture_pages(pages[:need])
+        if self.tier.put(f"px:{PrefixIndex.digest(prompt)}", blocks,
+                         {"tokens": prompt, "valid": valid, "kind": "prefix"}):
+            self.tier_policy.note_spill(need, prefix=True)
+            self.telemetry.count("tier.spills")
+            self.telemetry.count("tier.prefix_spills")
+            self.telemetry.count("tier.spilled_pages", need)
+            self.telemetry.histogram("tier.spill_ms", (time.perf_counter() - t0) * 1e3)
+
+    def _try_tier_admit(self, prompt, p, slot, gen0, reuse, request):
+        """Tier-first admission: a resume pack (exact token match on this
+        request's id) wins outright; otherwise a prefix pack is used only
+        when it covers MORE shared tokens than the device-resident prefix
+        index would. Returns the first sampled token, or None to fall through
+        to the normal admit paths."""
+        plen = len(prompt)
+        if gen0 > 0:
+            key = f"rid:{request.id}"
+            got = self.tier.get(key) if self.tier.has(key) else None
+            if got is not None:
+                blocks, meta = got
+                start = int(meta.get("valid", 0))
+                if (meta.get("kind") == "resume" and tuple(meta.get("tokens", ())) == tuple(prompt)
+                        and 1 <= start <= plen - 1):
+                    t0 = time.perf_counter()
+                    tok = self._tier_admit(prompt, p, slot, gen0, blocks, start, resume=True)
+                    self.tier.drop(key)  # one resume per preemption
+                    n = next(iter(blocks.values())).shape[0]
+                    self.tier_policy.note_fill(n)
+                    self.telemetry.count("tier.fills")
+                    self.telemetry.count("tier.filled_pages", n)
+                    self.telemetry.histogram("tier.swap_in_ms", (time.perf_counter() - t0) * 1e3)
+                    self.prefill_tokens += plen - start
+                    return tok
+                self.tier.drop(key)  # stale pack: request state moved on
+        if not self.prefix_reuse or plen - 1 < self.prefix_min:
+            return None
+        key = f"px:{PrefixIndex.digest(prompt)}"
+        got = self.tier.get(key) if self.tier.has(key) else None
+        if got is None:
+            return None
+        blocks, meta = got
+        shared = 0
+        for a, b in zip(tuple(meta.get("tokens", ())), prompt):
+            if a != b:
+                break
+            shared += 1
+        shared = min(shared, int(meta.get("valid", 0)), plen - 1)
+        dev_shared = reuse[1] if reuse is not None else 0
+        if shared < self.prefix_min or shared <= dev_shared:
+            return None  # digest collision, or device-resident reuse is better
+        t0 = time.perf_counter()
+        cover = (shared - 1) // self.page_size + 1
+        tok = self._tier_admit(prompt, p, slot, gen0, {ks: a[:cover] for ks, a in blocks.items()}, shared)
+        self.tier_policy.note_fill(cover, prefix=True)
+        self.telemetry.count("tier.fills")
+        self.telemetry.count("tier.prefix_fills")
+        self.telemetry.count("tier.filled_pages", cover)
+        self.telemetry.histogram("tier.swap_in_ms", (time.perf_counter() - t0) * 1e3)
+        self.prefill_tokens += plen - shared
+        self._note_prefix_hit(shared, 0)
+        return tok
+
+    def _tier_admit(self, prompt, p, slot, gen0, blocks, start, resume=False):
+        """Shared restore path for both pack kinds: write the pack's pages
+        into freshly allocated pool pages, point the slot's page-table row at
+        them, and run ONLY the suffix (positions ``start..plen``): the
+        restored rows are the original computation's own bytes, and the
+        suffix write leaves the boundary page's rows below ``start`` as
+        restored. A prefix pack's suffix runs through the prefix-admit path;
+        a resume pack's suffix, the one token sampled but never fed back,
+        runs through :meth:`_resume_row` at the decode step's shape, so the
+        resumed stream is the uninterrupted one bit for bit."""
+        plen = len(prompt)
+        P = self.page_size
+        cover = (start - 1) // P + 1
+        fresh = self.allocator.alloc(-(-plen // P))
+        bucket = 1 if resume else min(self._bucket(plen - start), self.max_seq_len - start)
+        self.page_table.assign(slot, fresh)
+        try:
+            with self.telemetry.span("serve.prefix_admit", bucket=bucket, shared=start):
+                self._note_shape("admit", self._row_shape())
+                self._tier_write_pages(fresh[:cover], {ks: a[:cover] for ks, a in blocks.items()})
+                self._push_page_table()
+                if resume:
+                    tok = self._resume_row(slot, prompt[-1], start, p, gen0)
+                else:
+                    self._note_shape("prefix_admit", (1, bucket))
+                    tok = self._prefill_row(slot, self._padded(prompt[start:], bucket), start, plen, p, gen0)
+        except Exception:
+            self.page_table.clear(slot)
+            self._push_page_table()
+            self.allocator.release(fresh)
+            raise
+        self.allocator.touch(fresh, self.steps)
+        self._peak_pages[slot] = len(fresh)
+        self._pages_gauges()
+        return tok
+
+    def _resume_row(self, slot: int, token: int, pos: int, p, gen0: int):
+        """Feed one token at ``pos`` through slot ``slot``'s row with the
+        decode step's own shapes: a batch of every slot, the others reading
+        and writing only the scratch page. A decode row's result depends on
+        its own inputs only, so the token's K/V and logits are the bytes the
+        uninterrupted decode step would have produced, and so is the token
+        sampled from them (a one-token prefill runs other matmul shapes,
+        whose low bits differ on a card). Pins the row's length to
+        ``pos + 1``; returns the sampled token as a [1] device tensor."""
+        B, dev = self.slots.num_slots, self.device
+        pick = torch.arange(B, device=dev) == slot
+        tokens = torch.where(pick, token, 0).to(torch.int32)
+        pos_b = torch.where(pick, pos, 0).to(torch.int32)
+        pages = torch.where(pick[:, None], self.cache.pages, 0)
+        view = KVCache(self.cache.k, self.cache.v, pos_b.clone(), pages)
+        self._note_shape("decode", pos_b.shape)
+        logits = self.model(tokens[:, None], pos_b[:, None], cache=view, kv_len=pos + 1)
+        self.cache.index[slot] = pos + 1
+        self.seeds[slot] = _seed64(p.seed)
+        temp = torch.where(pick, float(p.temperature), 0.0)
+        top_k = torch.where(pick, int(p.top_k), 0).to(torch.int32)
+        gen = torch.where(pick, gen0, 0).to(torch.int32)
+        self.last_admit_logits = logits[slot, 0].clone()
+        return sample_rows(logits[:, 0], temp, top_k, self.seeds, gen)[slot:slot + 1]
+
+    # ------------------------------------------------- disaggregated prefill
+
+    def _handoff_len(self, bucket: int) -> int:
+        """Rows of :meth:`prefill_only`'s one-row cache: the bucket rounded up
+        to the batch cache's read chunk, so the prefill reads its K/V in the
+        same chunks (and so the same bits) as a prefill through a slot."""
+        chunk = _read_chunk(self.cfg.decode_chunk, self.max_seq_len)
+        if self.paged:
+            chunk = max(1, chunk // self.page_size) * self.page_size
+        s = min(self.max_seq_len, -(-bucket // chunk) * chunk)
+        return s if _read_chunk(self.cfg.decode_chunk, s) == chunk else self.max_seq_len
 
     def prefill_only(self, prompt: List[int], params, gen0: int = 0) -> Dict[str, Any]:
-        raise NotImplementedError(f"disaggregated prefill is not ported yet ({_DISAGG_ITEM})")
+        """The prefill half of disaggregated serving: run one prompt through
+        a one-row dense cache of its own — slots, batch cache and page pool
+        untouched — and return a host-resident pack: the row's K/V as CPU
+        tensors ``k``/``v`` ``[L, plen, Kh, D]`` in the cache dtype, ``plen``
+        and the sampled ``first`` token. The stream a pack admits is the one
+        :meth:`admit` gives: prefill is a pure function of (params, prompt,
+        seed) and the host round trip keeps every bit."""
+        prompt = [int(t) for t in prompt]
+        plen = len(prompt)
+        if plen < 1:
+            raise BadArgumentsError("empty prompt")
+        if plen >= self.max_seq_len:
+            raise BadArgumentsError(f"prompt ({plen}) exceeds max_seq_len ({self.max_seq_len})")
+        bucket = self._bucket(plen)
+        cfg = self.cfg
+        shape = (cfg.n_layers, 1, self._handoff_len(bucket), cfg.n_kv_heads, cfg.head_dim)
+        dev = self.device
+        row = KVCache(torch.zeros(shape, dtype=cfg.dtype, device=dev), torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                      torch.zeros((1,), dtype=torch.int32, device=dev))
+        with self.telemetry.span("serve.prefill", bucket=bucket), torch.no_grad():
+            self._note_shape("prefill", (1, bucket))
+            tok = self._prefill_into(row, self._padded(prompt, bucket), 0, plen, params, gen0)
+            pack = {"k": row.k[:, 0, :plen].cpu(), "v": row.v[:, 0, :plen].cpu(), "plen": plen, "first": int(tok)}
+        self.prefill_calls += 1
+        self.prefill_tokens += plen
+        self._record_compile_gauges()
+        return pack
 
     def admit_from_kv(self, request: Request, pack: Dict[str, Any]) -> Tuple[int, int]:
-        raise NotImplementedError(f"disaggregated prefill is not ported yet ({_DISAGG_ITEM})")
+        """Admit a request whose prompt :meth:`prefill_only` already ran: the
+        pack's rows go back to the device and into a slot's row (through
+        fresh pages in paged mode) — no model forward runs here for the
+        prompt. Returns ``(slot, first_token)``; the first token was sampled
+        at prefill time and rides in the pack."""
+        p = request.params
+        plen = int(pack["plen"])
+        if request.tokens or plen != len(request.prompt):
+            raise BadArgumentsError("KV pack does not match the request state (stale handoff)")
+        if plen + p.max_new > self.max_seq_len:
+            raise BadArgumentsError(
+                f"prompt ({plen}) + max_new ({p.max_new}) exceeds max_seq_len ({self.max_seq_len})"
+            )
+        if not self.slots.free_slots():
+            raise SlotOccupiedError("no free slot")
+        slot = self.slots.free_slots()[0]
+        with self.telemetry.span("serve.kv_admit", plen=plen), torch.no_grad():
+            self._note_shape("admit", self._row_shape())
+            k = pack["k"].to(self.device, non_blocking=True)
+            v = pack["v"].to(self.device, non_blocking=True)
+            if self.paged:
+                P = self.page_size
+                worst = -(-(plen + p.max_new) // P)
+                cap = min(self.max_pages_per_req, self.allocator.pages_total)
+                if worst > cap:
+                    raise BadArgumentsError(f"request needs up to {worst} pages > cap {cap}")
+                n = -(-plen // P)
+                fresh = self.allocator.alloc(n)
+                self.page_table.assign(slot, fresh)
+                try:
+                    ids = torch.tensor(fresh, dtype=torch.long, device=self.device)
+                    for buf, rows in ((self.cache.k, k), (self.cache.v, v)):
+                        paged = buf.new_zeros((buf.shape[0], n * P) + tuple(buf.shape[3:]))
+                        paged[:, :plen] = rows
+                        buf.index_copy_(1, ids, paged.view(buf.shape[0], n, P, *buf.shape[3:]))
+                    self._push_page_table()
+                except Exception:
+                    self.page_table.clear(slot)
+                    self._push_page_table()
+                    self.allocator.release(fresh)
+                    raise
+                self.allocator.touch(fresh, self.steps)
+                self._peak_pages[slot] = n
+                self._pages_gauges()
+            else:
+                self.cache.k[:, slot, :plen] = k
+                self.cache.v[:, slot, :plen] = v
+            self.cache.index[slot] = plen
+            self.seeds[slot] = _seed64(p.seed)
+        first = int(pack["first"])
+        if self.slots.admit(request, first) != slot:
+            raise RuntimeError("slot bookkeeping diverged from the engine's choice")
+        self.prefix_index.insert(slot, [int(t) for t in request.prompt], gen=self.steps)
+        self.tokens_out += 1
+        self._record_compile_gauges()
+        return slot, first
 
     # ------------------------------------------------------------ lifecycle
 
@@ -592,6 +912,11 @@ class Engine:
             # the pool scales with the slot count unless the operator pinned
             # an explicit page budget
             self.num_pages = B * self.pages_per_row + 1
+        if self.tier is not None and not self._tier_pages_explicit:
+            # the host tier survives reconfigure (block shapes depend only on
+            # page_size, prefix packs are content-addressed); an un-pinned
+            # budget tracks the new pool size
+            self.tier.set_capacity(2 * self.num_pages)
         self._last_page_gauges = None
         self._peak_pages = {}
         with self.telemetry.span("serve.reconfigure", num_slots=B), torch.no_grad():
@@ -609,6 +934,11 @@ class Engine:
         zeroes inactive rows' index, a cleared row's paged writes land on
         the scratch page, and admission overwrites what it reads."""
         if self.paged:
+            if self.tier is not None:
+                try:
+                    self._spill_prefix(slot)
+                except Exception:  # noqa: BLE001 - best-effort: a failed spill never blocks release
+                    pass
             pages = self.page_table.clear(slot)
             if pages:
                 self.allocator.release(pages)
@@ -839,6 +1169,35 @@ class Engine:
         """Caps how many pages ONE request may hold. Applies to future
         admissions and growth denials only."""
         self.max_pages_per_req = max(1, min(self.pages_per_row, int(value)))
+
+    @property
+    def tier_stats(self) -> Dict[str, Any]:
+        """Host-DRAM tier accounting: pool occupancy plus the policy's
+        spill/fill ledger; ``{"enabled": False}`` when the tier is off."""
+        if self.tier is None:
+            return {"enabled": False}
+        return {
+            "enabled": True,
+            **self.tier.stats(),
+            **self.tier_policy.stats(),
+            # host-resident prefix digests: a spilled-but-swappable prefix
+            # counts as held by this engine
+            "prefix_digests": [k[3:] for k in self.tier.keys() if k.startswith("px:")],
+        }
+
+    def set_tier_host_pages(self, value: int) -> None:
+        """Resize the host tier's page budget. Shrink evicts LRU packs
+        immediately; an explicit value pins the budget across reconfigures."""
+        if self.tier is None:
+            return
+        self._tier_pages_explicit = True
+        self.tier.set_capacity(int(value))
+
+    def set_tier_low_water(self, value: float) -> None:
+        """Move the pressure-spill trigger's headroom threshold."""
+        if self.tier_policy is None:
+            return
+        self.tier_policy.low_water_pct = float(value)
 
 
 def _seed64(seed: int) -> int:

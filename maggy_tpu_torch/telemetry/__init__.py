@@ -21,9 +21,12 @@ the control plane and the serving engine.
   sampled from a recorder on a fixed tick (``Trainer.fit`` keeps one).
 * :mod:`~maggy_tpu_torch.telemetry.flops` — the 6N FLOPs/token estimate and
   the ``mfu_est`` gauge against the card's peak.
-
-``alerts`` comes with the scheduler (ROADMAP queue 1 item 6a);
-``flightrec.dump`` imports it inside a guard.
+* :mod:`~maggy_tpu_torch.telemetry.alerts` — the checked-in alert rules, the
+  :class:`AlertEvaluator` over a series store and the
+  :class:`RecompileSentinel` (the serving scheduler ticks both).
+* :mod:`~maggy_tpu_torch.telemetry.profcap` — alert-triggered
+  :class:`ProfileCapture`: a bounded ``torch.profiler`` trace on a CUDA card
+  plus a JSON capture.
 
 Wiring: executors build a worker recorder (:func:`worker_telemetry`), install
 it as the thread-ambient recorder (:func:`get`), and hand it to the RPC
@@ -33,7 +36,9 @@ attaches a snapshot that the driver folds into STATUS.
 
 from __future__ import annotations
 
-from maggy_tpu_torch.telemetry import flightrec, timeseries, tracing  # noqa: F401
+from maggy_tpu_torch.telemetry import alerts, flightrec, profcap, timeseries, tracing  # noqa: F401
+from maggy_tpu_torch.telemetry.alerts import AlertEvaluator, RecompileSentinel  # noqa: F401
+from maggy_tpu_torch.telemetry.profcap import ProfileCapture  # noqa: F401
 from maggy_tpu_torch.telemetry.histogram import LatencyHistogram  # noqa: F401
 from maggy_tpu_torch.telemetry.timeseries import Series, SeriesStore  # noqa: F401
 from maggy_tpu_torch.telemetry.recorder import (  # noqa: F401
@@ -64,4 +69,9 @@ __all__ = [
     "tracing",
     "flightrec",
     "timeseries",
+    "alerts",
+    "profcap",
+    "AlertEvaluator",
+    "RecompileSentinel",
+    "ProfileCapture",
 ]

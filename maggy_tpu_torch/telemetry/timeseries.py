@@ -2,7 +2,7 @@
 
 A copy of :mod:`maggy_tpu.telemetry.timeseries`. ``Trainer.fit`` samples its
 recorder into a store on a ~1 s tick and reconciles the memory ledger on the
-same tick; the serving scheduler (ROADMAP queue 1 item 6a) will keep one too.
+same tick; the serving scheduler keeps one on its metrics tick.
 
 Everything else in ``telemetry/`` is a point-in-time snapshot: the recorder
 keeps *latest* gauge values, *cumulative* counters, and *cumulative*

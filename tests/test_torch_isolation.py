@@ -42,6 +42,9 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
         "import maggy_tpu_torch.train.checkpoint, maggy_tpu_torch.train.prefetch, maggy_tpu_torch.train.native_loader\n"
         "import maggy_tpu_torch.train.sharded_dataset, maggy_tpu_torch.resilience.preemption\n"
         "import maggy_tpu_torch.telemetry.timeseries, maggy_tpu_torch.telemetry.flops\n"
+        "import maggy_tpu_torch.serve.scheduler, maggy_tpu_torch.serve.server, maggy_tpu_torch.serve.client\n"
+        "import maggy_tpu_torch.serve.loadgen, maggy_tpu_torch.serve.tier, maggy_tpu_torch.serve.__main__\n"
+        "import maggy_tpu_torch.telemetry.alerts, maggy_tpu_torch.telemetry.profcap\n"
         "from maggy_tpu_torch.ops import _build\n"
         "from maggy_tpu_torch.train import native_loader\n"
         "print(sorted(sys.modules))\n"
@@ -56,12 +59,16 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
     modules = ast.literal_eval(out[0])
     assert [m for m in modules if _forbidden(m)] == []
     assert "maggy_tpu_torch.train" in modules and "maggy_tpu_torch.serve.engine" in modules
+    assert "maggy_tpu_torch.serve.__main__" in modules and "maggy_tpu_torch.serve.tier.host_pool" in modules
     assert out[1] == "0 False False"  # no kernel or batcher library loaded, no triton
 
 
 def _sources():
     files = sorted((REPO / "maggy_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    serving = {"serve/__main__.py", "serve/scheduler.py", "serve/server.py", "serve/client.py", "serve/loadgen.py",
+               "serve/tier/host_pool.py", "telemetry/alerts.py", "telemetry/profcap.py"}
+    assert serving <= {str(f.relative_to(REPO / "maggy_tpu_torch")) for f in files[:-1]}
     return files
 
 

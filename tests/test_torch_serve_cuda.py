@@ -12,6 +12,9 @@ under the chip smoke's limit, 3e-2 relative L2 per position, since greedy
 tokens of a random bf16 model can differ on a near-tie.
 """
 
+import os
+import time
+
 import pytest
 import torch
 
@@ -138,3 +141,119 @@ def test_recompute_generate_runs_the_flash_kernel(dev):
     flash.reset_launches()
     out = generate(model, prompt, torch.tensor([5, 3], device=dev))
     assert out.shape == (2, 24) and flash.LAUNCHES["flash_fwd"] == 23 * CFG.n_layers
+
+
+# ------------------------------------------- host tier, handoff, scheduler
+
+
+def test_bf16_spill_swap_in_round_trip(dev):
+    """A bf16 stream spilled to the host tier and swapped back in: the
+    restored pages hold the spilled bytes bit for bit, and the stream equals
+    an uninterrupted one (the one token sampled but never fed back runs at
+    the decode step's shapes)."""
+    model = _model(dev)
+    prompt, sp = SYS + list(range(1, 40)), SamplingParams(max_new=24, temperature=0.8, top_k=40, seed=3)
+    free = _drive(Engine(CFG, model, num_slots=8, tier=False), [(prompt, sp)])[0]
+    engine = Engine(CFG, model, num_slots=8)
+    assert engine.tier is not None and engine.tier.pin_memory
+    req = Request(id="r", prompt=list(prompt), params=sp)
+    slot, first = engine.admit(req)
+    req.tokens.append(first)
+    for _ in range(6):
+        req.tokens.extend(engine.step().tokens.values())
+    req.tokens.extend(engine.flush().tokens.values())
+    valid = len(prompt) + len(req.tokens) - 1
+    pages = engine.page_table.pages(slot)[: -(-valid // engine.page_size)]
+    before = engine.cache.k[:, pages].reshape(CFG.n_layers, -1, CFG.n_kv_heads, CFG.head_dim)[:, :valid].clone()
+    assert engine.spill_stream(slot)
+    engine.release(slot)
+    blocks, meta = engine.tier.get(f"rid:{req.id}")
+    assert blocks["k"].dtype == torch.bfloat16 and meta["valid"] == valid
+    resumed = Request(id="r", prompt=list(prompt), params=sp, tokens=list(req.tokens))
+    slot2, first2 = engine.admit(resumed)
+    pages2 = engine.page_table.pages(slot2)[: len(pages)]
+    after = engine.cache.k[:, pages2].reshape(CFG.n_layers, -1, CFG.n_kv_heads, CFG.head_dim)[:, :valid]
+    assert torch.equal(after.view(torch.int16), before.view(torch.int16))
+    stream = list(req.tokens) + [first2]
+    while len(stream) < sp.max_new:
+        stream.extend(engine.step().tokens.values())
+    assert stream[: sp.max_new] == free
+    assert engine.tier_stats["fills"] == 1
+
+
+def test_admit_from_kv_on_cuda(dev):
+    """prefill_only -> admit_from_kv on the card gives admit's streams bit
+    for bit (both full prefills: prefix reuse off), paged and dense."""
+    model = _model(dev)
+    for paged in (True, False):
+        jobs = _jobs()
+        plain = _drive(Engine(CFG, model, num_slots=3, paged=paged, prefix_reuse=False), jobs)
+        engine = Engine(CFG, model, num_slots=3, paged=paged, prefix_reuse=False)
+        pending, streams, owner = list(enumerate(jobs)), {}, {}
+        while pending or engine.slots.active_count:
+            while pending and engine.slots.free_slots():
+                i, (prompt, sp) = pending.pop(0)
+                pack = engine.prefill_only(prompt, sp)
+                assert pack["k"].device.type == "cpu" and pack["k"].dtype == torch.bfloat16
+                slot, first = engine.admit_from_kv(Request(prompt=prompt, params=sp), pack)
+                streams[i], owner[slot] = [first], i
+            for slot, tok in engine.step().tokens.items():
+                streams[owner[slot]].append(tok)
+                if len(streams[owner[slot]]) >= jobs[owner[slot]][1].max_new:
+                    engine.release(slot)
+        engine.flush()
+        assert [streams[i] for i in range(len(jobs))] == plain
+
+
+def test_forced_profile_capture_takes_a_torch_profiler_trace(dev, tmp_path):
+    from maggy_tpu_torch.telemetry.alerts import ALERT_FIRING
+    from maggy_tpu_torch.telemetry.profcap import ProfileCapture
+
+    pc = ProfileCapture(dump_dir=str(tmp_path), device=dev, trace_s=0.2)
+    path = pc.tick([{"event": ALERT_FIRING, "alert": "alert.hbm_headroom"}], now=1.0)
+    assert pc.last_capture["profiler"] == "torch.profiler"
+    assert sorted(os.listdir(path)) == ["capture.json", "trace.json"]
+
+
+def test_scheduler_serves_an_engine_named_cuda_without_an_index(dev):
+    """``device="cuda"`` names the current card on the engine, so the
+    scheduler's loop thread can make it current."""
+    from maggy_tpu_torch.serve import Scheduler
+
+    engine = Engine(CFG, _model(dev), num_slots=2, device="cuda")
+    assert engine.device == torch.device("cuda", torch.cuda.current_device())
+    sched = Scheduler(engine)
+    req = sched.submit([1, 2, 3], SamplingParams(max_new=4))
+    sched.start()
+    try:
+        deadline = time.time() + 60
+        while req.state not in ("done", "failed") and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        sched.stop()
+    assert req.state == "done" and len(req.tokens) == 4, (req.state, req.error)
+
+
+def test_scheduler_on_the_second_card_leaves_the_first_alone(dev):
+    """A Scheduler whose engine is on cuda:1 makes that card current in its
+    loop thread: nothing is allocated on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from maggy_tpu_torch.serve import Scheduler
+
+    other = torch.device("cuda", 1)
+    engine = Engine(CFG, _model(other), num_slots=3, device=other)
+    torch.cuda.synchronize(0)
+    base = torch.cuda.memory_allocated(0)
+    sched = Scheduler(engine)
+    reqs = [sched.submit(prompt, sp) for prompt, sp in _jobs()]  # queued before the loop runs
+    sched.start()
+    try:
+        deadline = time.time() + 120
+        while any(r.state not in ("done", "failed") for r in reqs) and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        sched.stop()
+    assert all(r.state == "done" for r in reqs), [(r.state, r.error) for r in reqs]
+    assert [r.tokens for r in reqs] == _drive(Engine(CFG, _model(other), num_slots=3, device=other), _jobs())
+    assert torch.cuda.memory_allocated(0) == base

@@ -8,7 +8,8 @@ the JAX engine's token for token: float32 ``DecoderConfig.tiny`` with weights
 converted from the JAX init, so one-pass prefill and token-by-token cache
 fill agree on every argmax (as ``tests/test_serve_engine.py`` does on the JAX
 side). Within the port, streams are compared bit for bit: async == sync,
-paged == dense, and a sampled stream across slots and batch-mates. Then the
+paged == dense, a sampled stream across slots and batch-mates, and the
+prefill handoff (``prefill_only`` -> ``admit_from_kv``) against ``admit``. Then the
 host-side units (allocator, page table, slots, prefix index), ported from
 ``tests/test_paged_kv.py`` and ``tests/test_prefix_reuse.py``.
 """
@@ -64,15 +65,20 @@ def jobs(serve, temperature=0.0):
                                      seed=11 + i)) for i, p in enumerate(PROMPTS)]
 
 
-def drive(serve, engine, todo):
+def drive(serve, engine, todo, handoff=False):
     """Admit while a slot is free, step, release finished requests; returns
-    the token streams in submission order."""
+    the token streams in submission order. ``handoff`` admits each request
+    through ``prefill_only`` -> ``admit_from_kv`` instead of ``admit``."""
     pending = list(enumerate(todo))
     streams, owner = {}, {}
     while pending or engine.slots.active_count:
         while pending and engine.slots.free_slots():
             i, (prompt, sp) = pending.pop(0)
-            slot, first = engine.admit(serve.Request(prompt=prompt, params=sp))
+            req = serve.Request(prompt=prompt, params=sp)
+            if handoff:
+                slot, first = engine.admit_from_kv(req, engine.prefill_only(prompt, sp))
+            else:
+                slot, first = engine.admit(req)
             streams[i], owner[slot] = [first], i
         for slot, tok in engine.step().tokens.items():
             i = owner[slot]
@@ -267,16 +273,47 @@ def test_surfaces_and_unported_parts(weights):
     assert engine.pages_held_peak(0) == 0 and engine.steps > 0 and engine.tokens_out > 0
     engine.set_max_pages_per_req(99)
     assert engine.max_pages_per_req == engine.pages_per_row
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-        port_engine(sd, tier=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6c"):
-        engine.prefill_only([1, 2], SamplingParams())
-    with pytest.raises(NotImplementedError, match="queue 1 item 6c"):
-        engine.admit_from_kv(Request(prompt=[1]), {})
+    # the host tier: releases spill prefix packs, and a prompt whose prefix
+    # is no longer resident on the device fills from one
+    tiered = port_engine(sd, tier=True)
+    drive(tserve, tiered, jobs(tserve))
+    assert tiered.tier_stats["prefix_spills"] > 0 and tiered.tier_stats["prefix_fills"] == 0
+    tiered.admit(Request(prompt=SYS + [1, 2, 3], params=SamplingParams(max_new=2)))
+    assert tiered.tier_stats["prefix_fills"] == 1 and tiered.tier_stats["fills"] == 1
+    # the prefill handoff's pack: host K/V of the prompt's rows
+    pack = engine.prefill_only(SYS + [4], SamplingParams())
+    assert pack["plen"] == len(SYS) + 1 and pack["k"].device.type == "cpu"
+    assert pack["k"].shape == (CFG.n_layers, len(SYS) + 1, CFG.n_kv_heads, CFG.head_dim)
+    with pytest.raises(BadArgumentsError, match="stale handoff"):
+        engine.admit_from_kv(Request(prompt=[1]), pack)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         port_engine(sd, mesh=object())
     with pytest.raises(BadArgumentsError, match="TRAINING config"):
         Engine(tt.DecoderConfig.tiny(decode=True), sd, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_handoff_streams(weights):
+    """The JAX engine's greedy streams through ``prefill_only`` ->
+    ``admit_from_kv``, paged-async and dense-sync."""
+    params, _ = weights
+    return {name: drive(jserve, jserve.Engine(JCFG, params, num_slots=3, **MODES[name]), jobs(jserve), handoff=True)
+            for name in ("paged_async", "dense_sync")}
+
+
+@pytest.mark.parametrize("mode", ["paged_async", "dense_sync"])
+def test_prefill_handoff_streams(weights, jax_handoff_streams, mode):
+    """``prefill_only`` -> ``admit_from_kv`` gives the stream ``admit``
+    gives, bit for bit, greedy and sampled (without prefix reuse both run
+    full prefills; the handoff's through a dense row of its own, the slot's
+    through its paged or dense row), and the greedy streams equal JAX's
+    handoff."""
+    _, sd = weights
+    for temperature in (0.0, 0.7):
+        todo = jobs(tserve, temperature)
+        handed = drive(tserve, port_engine(sd, prefix_reuse=False, **MODES[mode]), todo, handoff=True)
+        assert handed == drive(tserve, port_engine(sd, prefix_reuse=False, **MODES[mode]), todo)
+    assert drive(tserve, port_engine(sd, **MODES[mode]), jobs(tserve), handoff=True) == jax_handoff_streams[mode]
 
 
 # --------------------------------------------------------- host-side units

@@ -66,10 +66,14 @@ Phases, each printing one line:
             tokens, eight sharing a 512-token system prefix, half greedy and
             half sampled. Every request finishes; prefix hits; the streams
             again paged-sync and dense-async and in a permuted order, equal;
-            each prefix hit's first-token logits against a full prefill. Then
-            ``serve.engine.times``: prefill per bucket, a decode step with
-            every slot busy beside its bound, and the device's busy share
-            over it (torch.profiler).
+            each prefix hit's first-token logits against a full prefill; the
+            streams once more without prefix reuse (the full-prefill streams
+            a prefill handoff gives). Then ``serve.engine.times``: prefill
+            per bucket, a decode step with every slot busy beside its bound,
+            and the device's busy share over it (torch.profiler); then the
+            same engine serves the 16 requests and the busy step is taken
+            again (``after_run``), with the cyclic collector off as well and
+            the top host operations beside the kernels.
     serve.sched  the same requests through the serving stack: ``Engine``
             with its defaults (the host tier on) behind the ``Scheduler`` and
             a ``ServeServer`` on localhost, submitted by a ``ServeClient``
@@ -90,10 +94,27 @@ Phases, each printing one line:
             requests filled from the host tier's prefix pack. Every stream
             equal to ``serve.engine``'s bit for bit; no request failed. The
             spill, swap-in, ``prefill_only`` and ``admit_from_kv`` times.
+    serve.fleet  the fp32 masters of the projections freed, one serving
+            state on the card: ``launch_fleet`` with 2 decode replicas and 1
+            prefill replica of 8 slots, all on ``cuda:0``. The 16 requests
+            through the router, staggered: every stream equal to
+            ``serve.engine``'s full-prefill stream, 16 routed and completed,
+            none requeued, both decode replicas serving, 16 handoffs, no
+            flash launch, every replica's projections one storage, the
+            monitor's fleet panel with every replica row. Again with replica
+            1 killed mid-stream (``replica_kill``): equal streams, requeues,
+            one respawn inside the budget, the card's allocated memory back
+            within 1 GiB without the collector. Then one replica under the
+            autoscaler (min 1, max 2): a scale-out built on the card and
+            admitted through the probation gate, a drain-safe scale-in,
+            streams equal. TTFT, TPOT, tokens/s, each decode replica's step
+            in the first and last quarter of the run, spawn to UP, peak.
     serve.cli  after the weights are freed: ``python -m maggy_tpu_torch.serve
             --config llama3_8b --slots 4`` as its own process, four requests
             through ``ServeClient``, SIGTERM and exit 0 within 60 s; its
-            init time, start-up, first TTFT and peak memory.
+            init time, start-up, first TTFT and peak memory. Then
+            ``serve.cli.fleet``: the same with ``--replicas 2
+            --prefill-replicas 1``, every request handed off.
 11. lagom.train  the ``train`` configuration as the train_fn of the port's
             ``lagom``: ``HyperparameterOptConfig(num_trials=2,
             optimizer="randomsearch", seed=0)`` over ``lr`` in [1e-5, 1e-4],
@@ -236,6 +257,10 @@ RESUME_SHARDS = 4
 RESUME_DATA_SEED = 7
 # train.remat: each setting in turn, remat=False first (the reference)
 REMAT_ORDER = ((False, "nothing"), (True, "nothing"), (True, "dots"), (True, "dots_attn"))
+# the whole run must end inside 1200 s: one still going at RUN_DEADLINE_S
+# prints every thread's Python stack on stderr and exits non-zero
+RUN_DEADLINE_S = 1140
+T0 = time.perf_counter()
 # H100 SXM dense peaks (NVIDIA data sheet, 700 W)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -263,6 +288,8 @@ def card_line() -> str:
 
 def emit(phase: str, **fields) -> None:
     print(f"{phase}: " + json.dumps(fields, default=float), flush=True)
+    # progress on stderr, where a run cut short shows how far it got
+    print(f"chip_smoke: {phase} at {time.perf_counter() - T0:.1f} s", file=sys.stderr, flush=True)
 
 
 def time_ms(torch, fn, batches: int = 5, reps: int = 10) -> float:
@@ -1498,7 +1525,7 @@ def _peak_gib(torch, dev):
 
 
 def engine_requests(torch, cfg, n=ENGINE_REQUESTS, shared=ENGINE_SHARED, system=ENGINE_SYSTEM,
-                    lengths=(64, 1536), max_new=(32, 128), seed=6):
+                    lengths=(64, 1536), max_new=(16, 64), seed=6):
     """The engine phase's requests: ``shared`` prompts of a ``system``-token
     prefix plus a suffix (first, so they share one admission wave) and the
     rest unshared, ``lengths`` tokens (one of each end: the longest fills the
@@ -1549,15 +1576,17 @@ def drive_engine(engine, requests, order=None):
 
 
 def phase_serve_engine(torch, master, card: str, requests, num_slots=ENGINE_SLOTS, system=ENGINE_SYSTEM,
-                       timed_steps=20, profiled_steps=10, buckets=PREFILL_BUCKETS):
+                       timed_steps=10, profiled_steps=3, buckets=PREFILL_BUCKETS):
     """``Engine`` with its defaults (paged, page 16, prefix reuse, async,
     the host tier): the requests to completion; the greedy streams again
     paged-sync and dense-async; every stream again admitted in a permuted
-    order; each prefix hit's first-token logits against a full prefill.
+    order; each prefix hit's first-token logits against a full prefill;
+    the streams once more without prefix reuse (full prefills only).
     Then the numbers: prefill time per bucket, a steady decode step at every
     slot busy beside its bound, and the device's busy share over it.
-    Returns the paged-async streams by request id and that decode step's
-    ms, which the later serving phases are held to."""
+    Returns the paged-async streams by request id, the no-prefix-reuse
+    streams and that decode step's ms, which the later serving phases are
+    held to."""
     import gc
 
     from maggy_tpu_torch.models.generate import prefill
@@ -1595,7 +1624,8 @@ def phase_serve_engine(torch, master, card: str, requests, num_slots=ENGINE_SLOT
     stats = dict(steps=engine.steps, tokens_out=engine.tokens_out, compile_counts=engine.compile_counts,
                  prefix=engine.prefix_stats, pages=engine.paging_stats)
     del engine, hit_logits
-    for name, kw in (("paged_sync", dict(async_decode=False)), ("dense_async", dict(paged=False))):
+    for name, kw in (("paged_sync", dict(async_decode=False)), ("dense_async", dict(paged=False)),
+                     ("no_prefix", dict(prefix_reuse=False))):
         engine = fresh(**kw)
         runs[name], _ = drive_engine(engine, requests)
         hits[name] = engine.prefix_hits
@@ -1620,8 +1650,12 @@ def phase_serve_engine(torch, master, card: str, requests, num_slots=ENGINE_SLOT
         greedy_equal_permuted=all(runs["permuted"][i] == base[i] for i in greedy),
         hit_logits_max_rel_l2=max(hit_errs.values(), default=None),
         no_kernel_launched=all(v == 0 for v in flash.LAUNCHES.values()),
+        # full prefills only: the streams a disaggregated fleet's handoff
+        # computes, equal to the prefix hits' only where the bits agree
+        no_prefix_finished=all(len(runs["no_prefix"].get(r.id, ())) == r.params.max_new for r in requests),
+        no_prefix_differing=[i for i in base if runs["no_prefix"].get(i) != base[i]],
     )
-    ok = (checks["all_finished"] and checks["prefix_hits"] >= n_shared - 1
+    ok = (checks["all_finished"] and checks["no_prefix_finished"] and checks["prefix_hits"] >= n_shared - 1
           and checks["greedy_equal_across_engines"] and checks["sampled_equal_permuted"]
           and checks["no_kernel_launched"] and len(hit_errs) == checks["prefix_hits"]
           and checks["hit_logits_max_rel_l2"] <= TOL_SERVE_LOGITS_REL_L2)
@@ -1630,12 +1664,97 @@ def phase_serve_engine(torch, master, card: str, requests, num_slots=ENGINE_SLOT
          card=card)
     if not ok:
         raise SystemExit(f"serve.engine failed: {checks}")
-    return base, serve_engine_times(torch, fresh(), requests, card, timed_steps, profiled_steps, buckets)
+    step_ms = serve_engine_times(torch, fresh(), requests, card, timed_steps, profiled_steps, buckets)
+    return base, runs["no_prefix"], step_ms
+
+
+def _busy_decode_step(torch, engine, requests, timed_steps, profiled_steps) -> dict:
+    """Every slot busy with ``requests``' first prompts (long enough not to
+    finish), then ``timed_steps`` decode steps timed, as many again with the
+    cyclic collector off, and ``profiled_steps`` under torch.profiler on a
+    card: the step's ms both ways, the rows' cache lengths, the objects the
+    collector tracks, and per step the device's busy ms, the kernel
+    launches, the top kernels and the top host operations (self CPU ms),
+    the host's self CPU ms in all and in CUDA runtime calls, the profiled
+    step's wall ms, the admissions that hit the prefix cache, and the
+    caching allocator's retries, device allocations and frees over the
+    timed steps. The slots are released afterwards."""
+    import gc
+
+    from maggy_tpu_torch.serve import Request, SamplingParams
+
+    dev = engine.device
+    hits = engine.prefix_hits
+    for req in requests[:engine.slots.num_slots]:
+        engine.admit(Request(prompt=list(req.prompt), params=SamplingParams(max_new=engine.max_seq_len // 4)))
+    for _ in range(4):
+        engine.step()
+    out = dict(cache_lengths=[engine.slots.get(s).next_pos for s in engine.slots.active_slots()],
+               tracked_objects=len(gc.get_objects()), admission_prefix_hits=engine.prefix_hits - hits)
+    alloc_keys = ("num_alloc_retries", "num_device_alloc", "num_device_free", "num_sync_all_streams")
+
+    def alloc_counts():
+        stats = torch.cuda.memory_stats(dev) if dev.type == "cuda" else {}
+        return {k: stats.get(k, 0) for k in alloc_keys}
+
+    def timed():
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            engine.step()
+        _sync(torch, dev)
+        return (time.perf_counter() - t0) * 1e3 / timed_steps
+
+    before = alloc_counts()
+    out["decode_step_ms"] = timed()
+    out["allocator"] = {k: v - before[k] for k, v in alloc_counts().items()}
+    gc.disable()
+    try:
+        out["decode_step_ms_collector_off"] = timed()
+    finally:
+        gc.enable()
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(profiled_steps):
+                engine.step()
+            _sync(torch, dev)
+            out["profiled_wall_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / profiled_steps
+        events = [e for e in prof.key_averages() if not e.is_user_annotation]
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+        out.update(
+            device_busy_ms_per_step=sum(e.self_device_time_total for e in kernels) / 1e3 / profiled_steps,
+            kernel_launches_per_step=sum(e.count for e in kernels) / profiled_steps,
+            top_kernels=[dict(ms=m, name=k, launches=c) for m, k, c in sorted(
+                ((e.self_device_time_total / 1e3 / profiled_steps, e.key[:70], e.count // profiled_steps)
+                 for e in kernels), reverse=True)[:10]],
+            top_host=[dict(ms=m, name=k, calls=c) for m, k, c in sorted(
+                ((e.self_cpu_time_total / 1e3 / profiled_steps, e.key[:60], e.count // profiled_steps)
+                 for e in host), reverse=True)[:8]],
+            host_self_ms_per_step=sum(e.self_cpu_time_total for e in host) / 1e3 / profiled_steps,
+            cuda_runtime={e.key: dict(ms=e.self_cpu_time_total / 1e3 / profiled_steps, calls=e.count / profiled_steps)
+                          for e in host if e.key.startswith("cuda")})
+        # the profile's events (millions of objects) sit in reference
+        # cycles: left to the collector, every later full collection walks
+        # them, and every later phase's host-bound steps pay for it
+        del prof, events, kernels, host
+        gc.collect()
+    for slot in list(engine.slots.active_slots()):
+        engine.release(slot)
+    engine.flush()
+    return out
 
 
 def serve_engine_times(torch, engine, requests, card, timed_steps, profiled_steps, buckets):
     """Prefill time per bucket, then a steady decode step with every slot
-    busy: its time, tokens/s, bound, and the device's busy share."""
+    busy: its time, tokens/s, bound, and the device's busy share. Then the
+    same engine serves ``requests`` to the end and the busy step is taken
+    again (``after_run``): whether an engine that has served steps slower,
+    single-threaded, with no scheduler in the way, and where the time goes
+    (collector off, host operations)."""
     from maggy_tpu_torch.models.transformer import Dense
     from maggy_tpu_torch.serve import Request, SamplingParams
 
@@ -1652,33 +1771,10 @@ def serve_engine_times(torch, engine, requests, card, timed_steps, profiled_step
             times.append((time.perf_counter() - t0) * 1e3)
             engine.release(slot)
         prefill_ms[bucket] = times
-    # every slot busy: the shared-prefix requests, long enough not to finish
-    for req in requests[:engine.slots.num_slots]:
-        engine.admit(Request(prompt=list(req.prompt), params=SamplingParams(max_new=engine.max_seq_len // 4)))
-    for _ in range(4):
-        engine.step()
-    lengths = [engine.slots.get(s).next_pos for s in engine.slots.active_slots()]
-    _sync(torch, dev)
-    t0 = time.perf_counter()
-    for _ in range(timed_steps):
-        engine.step()
-    _sync(torch, dev)
-    step_ms = (time.perf_counter() - t0) * 1e3 / timed_steps
-    busy_ms, top = None, []
-    if dev.type == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(profiled_steps):
-                engine.step()
-            _sync(torch, dev)
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-                   and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / profiled_steps
-        launches = sum(e.count for e in kernels) / profiled_steps
-        top = sorted(((e.self_device_time_total / 1e3 / profiled_steps, e.key[:70], e.count // profiled_steps)
-                      for e in kernels), reverse=True)[:10]
+    fresh = _busy_decode_step(torch, engine, requests, timed_steps, profiled_steps)
+    drive_engine(engine, requests)
+    after = _busy_decode_step(torch, engine, requests, timed_steps, profiled_steps)
+    step_ms, lengths, busy_ms = fresh["decode_step_ms"], fresh["cache_lengths"], fresh.get("device_busy_ms_per_step")
     # the least a step could take: every bf16 projection weight and every
     # cached K/V of the active rows read once (mid-window lengths)
     weight_bytes = sum(m.weight.numel() * m.weight.element_size() for m in engine.model.modules()
@@ -1687,13 +1783,13 @@ def serve_engine_times(torch, engine, requests, card, timed_steps, profiled_step
     kv_bytes = sum(n + 1 + timed_steps // 2 for n in lengths) * per_token
     bound_ms = (weight_bytes + kv_bytes) / PEAK_BYTES * 1e3
     slots = len(lengths)
-    emit("serve.engine.times", slots=slots, prefill_ms=prefill_ms, decode_step_ms=step_ms,
-         tokens_per_sec=slots * 1e3 / step_ms, decode_bound_ms=bound_ms, bound_by="bytes",
-         weight_gib=weight_bytes / 2**30, kv_gib=kv_bytes / 2**30, share_of_bound=bound_ms / step_ms,
-         device_busy_ms_per_step=busy_ms, busy_share=None if busy_ms is None else busy_ms / step_ms,
-         kernel_launches_per_step=None if busy_ms is None else launches,
-         top_kernels=[dict(ms=m, name=k, launches=c) for m, k, c in top],
-         cache_lengths=lengths, max_memory_allocated_gib=_peak_gib(torch, dev), card=card)
+    after_busy = after.get("device_busy_ms_per_step")
+    emit("serve.engine.times", slots=slots, prefill_ms=prefill_ms, tokens_per_sec=slots * 1e3 / step_ms,
+         decode_bound_ms=bound_ms, bound_by="bytes", weight_gib=weight_bytes / 2**30, kv_gib=kv_bytes / 2**30,
+         share_of_bound=bound_ms / step_ms, busy_share=None if busy_ms is None else busy_ms / step_ms, **fresh,
+         after_run=dict(requests=len(requests), over_fresh=after["decode_step_ms"] / step_ms,
+                        busy_share=None if after_busy is None else after_busy / after["decode_step_ms"], **after),
+         max_memory_allocated_gib=_peak_gib(torch, dev), card=card)
     del engine
     return step_ms
 
@@ -1987,14 +2083,286 @@ def phase_serve_tier(torch, master, card: str, requests, base, num_slots=ENGINE_
     del engine, sched, server
 
 
-def phase_serve_cli(torch, card: str, slots=4, n=4, prompt_len=256, max_new=32, start_s=600, timeout_s=300):
+# the client runs in the fleet's own process here, so it polls gently: a
+# client elsewhere would not share the decode loops' interpreter lock
+FLEET_POLL_S = 0.05
+
+
+def _fleet_streams(client, requests, stagger_s: float, timeout_s: float):
+    """``requests`` submitted ``stagger_s`` apart over one client to the
+    router, then every result: ({id: tokens}, the run's wall s)."""
+    t0 = time.perf_counter()
+    ids = {}
+    for r in requests:
+        ids[r.id] = _submit(client, r)
+        time.sleep(stagger_s)
+    snaps = {rid: client.result(sid, timeout=timeout_s, poll_interval=FLEET_POLL_S) for rid, sid in ids.items()}
+    return {rid: s["tokens"] for rid, s in snaps.items()}, time.perf_counter() - t0
+
+
+def _stamp_steps(engine, log: list) -> None:
+    """Record (time, active rows) where the replica's loop returns from
+    each decode step. The wrapper holds the engine weakly: a killed
+    replica's engine must still be freed without the cyclic collector."""
+    import weakref
+
+    ref, step = weakref.ref(engine), type(engine).step
+
+    def stamped():
+        eng = ref()
+        rows = eng.slots.active_count
+        out = step(eng)
+        log.append((time.perf_counter(), rows))
+        return out
+
+    engine.step = stamped
+
+
+def _step_trend(log: list) -> dict:
+    """The median gap between a replica's decode steps in the first and in
+    the last quarter of its run (ms), with the median active rows there."""
+    gaps = [((b - a) * 1e3, rows) for (a, _), (b, rows) in zip(log, log[1:])]
+    q = max(1, len(gaps) // 4)
+    first, last = gaps[:q], gaps[-q:]
+    return dict(steps=len(log), first_ms=statistics.median(g for g, _ in first) if gaps else None,
+                last_ms=statistics.median(g for g, _ in last) if gaps else None,
+                first_rows=statistics.median(r for _, r in first) if gaps else None,
+                last_rows=statistics.median(r for _, r in last) if gaps else None)
+
+
+def _thread_cpu_s() -> dict:
+    """CPU seconds each live thread of this process has used, by thread
+    name (numbered where names repeat)."""
+    import threading
+
+    out = {}
+    for t in threading.enumerate():
+        try:
+            cpu = time.clock_gettime(time.pthread_getcpuclockid(t.ident))
+        except (OSError, TypeError):  # the thread ended meanwhile
+            continue
+        name, n = t.name, 1
+        while name in out:
+            n += 1
+            name = f"{t.name}#{n}"
+        out[name] = cpu
+    return out
+
+
+def _fleet_latency(stats) -> dict:
+    return dict(ttft_ms_p50=stats["ttft_ms_p50"], ttft_ms_p99=stats["ttft_ms_p99"],
+                tpot_ms_p50=stats["tpot_ms_p50"], tpot_ms_p99=_percentile(stats, "tpot_ms", 0.99))
+
+
+def phase_serve_fleet(torch, cfg, serving, card: str, requests, base, full, engine_step_ms,
+                      num_slots=ENGINE_SLOTS, stagger_s=0.1, timeout_s=240):
+    """The serving fleet on one card: ``launch_fleet`` over two decode
+    replicas and one prefill replica, all on the card's one lease and one
+    copy of the serving weights (``serving``). ``serve.engine``'s requests
+    through a ``ServeClient`` at the router's address, staggered: every
+    stream equal to ``serve.engine``'s full-prefill stream (a handoff
+    prefills the whole prompt), routed = completed = 16, no requeue, both
+    decode replicas serving, 16 handoffs, no flash launch, every replica's
+    projections one storage. The same requests with replica 1 killed
+    mid-stream (the ``replica_kill`` chaos kind): equal streams, requeues,
+    the dead replica respawned inside the restart budget, and the card's
+    memory back within 1 GiB of its value before the kill without the
+    cyclic collector. Then a fleet of one replica under the autoscaler (min
+    1, max 2): the first wave fills it and it scales out; the spawned
+    replica passes the probation gate and takes the second wave; idle, it
+    scales in by a drain; streams equal ``serve.engine``'s. Prints the
+    fleet's TTFT, TPOT and tokens/s, each decode replica's step in the first
+    and last quarter of the steady run, the time from spawn to UP, the peak
+    memory and the monitor's fleet panel."""
+    import gc
+    import threading
+
+    from maggy_tpu_torch.models.transformer import Dense
+    from maggy_tpu_torch.monitor import render_status
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.resilience import chaos
+    from maggy_tpu_torch.serve import ServeClient
+    from maggy_tpu_torch.serve.fleet import AutoscaleConfig, ReplicaSpec, RouterConfig, launch_fleet
+
+    dev = next(iter(serving.values())).device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    alloc = (lambda: torch.cuda.memory_allocated(dev)) if dev.type == "cuda" else (lambda: 0)
+    spec = ReplicaSpec(cfg, serving, num_slots=num_slots, device=dev)
+    ok = True
+    out = {}
+    router = launch_fleet(spec, replicas=2, prefill_replicas=1, config=RouterConfig(max_restarts=1))
+    try:
+        t0 = time.perf_counter()
+        addr = router.start(host="127.0.0.1")
+        start_s = time.perf_counter() - t0
+        engines = {r.index: r.server.scheduler.engine for r in router.replicas}
+        dense = [n + ".weight" for n, m in engines[0].model.named_modules() if isinstance(m, Dense)]
+        shared = all(e.model.get_submodule(n[:-7]).weight.data_ptr() == serving[n].data_ptr()
+                     for e in engines.values() for n in dense)
+        logs = {i: [] for i in (0, 1)}
+        for i in logs:
+            _stamp_steps(engines[i], logs[i])
+        del engines
+        tracked = len(gc.get_objects())
+        flash.reset_launches()
+        cpu0 = _thread_cpu_s()
+        with ServeClient(addr, router.secret) as client:
+            streams, run_s = _fleet_streams(client, requests, stagger_s, timeout_s)
+            cpu1 = _thread_cpu_s()
+            stats = client.stats()
+            status = client._client.request({"type": "STATUS"})
+        routing = stats["routing"]
+        decode_rows = [r for r in stats["replicas"] if r["role"] == "decode"]
+        steady = dict(
+            streams_equal_full_prefill=streams == full, differing=[i for i in full if streams.get(i) != full[i]],
+            streams_equal_serve_engine=streams == base,
+            routed=routing["routed"], completed=routing["completed"], requeued=routing["requeued"],
+            prefilled=routing["prefilled"], handoffs=routing["handoffs"],
+            done_by_replica={r["replica"]: r["requests_done"] for r in stats["replicas"]},
+            no_kernel_launched=all(v == 0 for v in flash.LAUNCHES.values()), weights_one_storage=shared,
+            run_s=run_s, start_s=start_s, **_fleet_latency(stats),
+            tokens_per_sec=sum(len(t) for t in streams.values()) / run_s,
+            replica_tokens_per_sec_ema={r["replica"]: r["tokens_per_sec"] for r in decode_rows},
+            step_trend={i: _step_trend(log) for i, log in logs.items()},
+            engine_times_decode_step_ms=engine_step_ms, tracked_objects=tracked,
+            # where the host's time went: each thread's CPU seconds over the run
+            thread_cpu_s=dict(sorted(((k, v - cpu0[k]) for k, v in cpu1.items() if k in cpu0), key=lambda kv: -kv[1])),
+        )
+        panel = render_status(status)
+        steady["panel_replica_rows"] = all(f"r{i} [" in panel for i in (0, 1, 2))
+        steady["panel"] = panel.splitlines()
+        steady_ok = (steady["streams_equal_full_prefill"] and steady["routed"] == steady["completed"] == len(requests)
+                     and steady["requeued"] == 0 and all(r["requests_done"] > 0 for r in decode_rows)
+                     and steady["prefilled"] == steady["handoffs"] == len(requests)
+                     and steady["no_kernel_launched"] and shared and steady["panel_replica_rows"])
+        out["steady"] = steady
+    finally:
+        router.stop()
+    del router
+    gc.collect()
+
+    # chaos on a fresh fleet: breakers the steady run opened would keep
+    # traffic off replica 1, and a replica that never decodes is never
+    # killed. Replica 1 is killed once it decodes; memory is read before
+    # the kill and after the respawned fleet is idle again, no collection
+    router = launch_fleet(spec, replicas=2, prefill_replicas=1, config=RouterConfig(max_restarts=1))
+    try:
+        addr = router.start(host="127.0.0.1")
+        before = alloc()
+        seen = []
+        done = threading.Event()
+
+        def watch():
+            while not done.wait(0.1):
+                rows = router._on_status({})["fleet"]["replicas"]
+                seen.extend(r["state"] for r in rows if r["replica"] == 1 and r["state"] not in seen)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        chaos.install(chaos.Chaos.parse("replica_kill:replica=1"))
+        try:
+            watcher.start()
+            with ServeClient(addr, router.secret) as client:
+                streams, run_s = _fleet_streams(client, requests, stagger_s, timeout_s)
+                try:
+                    _wait(lambda: router.counters["respawned"] >= 1 and router._replica(1).alive(), timeout_s,
+                          "replica 1's respawn")
+                except SystemExit as e:
+                    raise SystemExit(f"{e}; chaos fired: {chaos.get().fired}; "
+                                     f"router log: {list(router._log)[-20:]}") from None
+                _wait(lambda: client.stats()["in_flight"] == 0, timeout_s, "an idle fleet")
+                stats = client.stats()
+            fired = chaos.get().fired
+        finally:
+            chaos.reset()
+            done.set()
+            watcher.join(timeout=10)
+        after = alloc()
+        routing = stats["routing"]
+        chaos_out = dict(
+            fired=bool(fired), streams_equal_full_prefill=streams == full,
+            differing=[i for i in full if streams.get(i) != full[i]], requeued=routing["requeued"],
+            respawned=routing["respawned"], max_restarts=router.config.max_restarts,
+            replica1_states_seen=seen, completed=routing["completed"],
+            down_logged=any("replica 1 down: requeued" in line for line in router._log),
+            allocated_before_kill_gib=before / 2**30, allocated_after_respawn_gib=after / 2**30,
+            run_s=run_s, **_fleet_latency(stats),
+        )
+        chaos_ok = (chaos_out["fired"] and chaos_out["streams_equal_full_prefill"] and routing["requeued"] >= 1
+                    and routing["respawned"] == 1 <= router.config.max_restarts and chaos_out["down_logged"]
+                    and router._replica(1).restarts == 1 and abs(after - before) <= 2**30)
+        out["chaos"] = chaos_out
+        ok = steady_ok and chaos_ok
+    finally:
+        router.stop()
+    del router
+    gc.collect()
+
+    # the autoscaler: one replica, min 1, max 2 decode replicas
+    scale_cfg = AutoscaleConfig(min_replicas=1, max_replicas=2, target_util=0.75, low_util=0.3, high_hold_s=1.0,
+                                low_hold_s=1.0, scale_cooldown_s=5.0, guard_window_s=2.0, drain_grace_s=3.0,
+                                drain_timeout_s=120.0, warm_timeout_s=300.0)
+    router = launch_fleet(spec, replicas=1, autoscale=scale_cfg, config=RouterConfig(default_service_ms=500.0))
+    try:
+        addr = router.start(host="127.0.0.1")
+        scaler = router.autoscaler
+
+        def events(name):
+            return [e for e in scaler.snapshot()["events"] if e["event"] == name]
+
+        first, second = requests[:num_slots], requests[num_slots:]
+        with ServeClient(addr, router.secret) as client:
+            ids = {}
+            for r in first:
+                ids[r.id] = _submit(client, r)
+                time.sleep(stagger_s)
+            _wait(lambda: events("fleet.scale.admitted"), 180, "the scale-out's admission")
+            spawned = router._replica(1)
+            on_card = spawned is not None and spawned.server.scheduler.engine.device == dev
+            for r in second:
+                ids[r.id] = _submit(client, r)
+                time.sleep(stagger_s)
+            streams = {rid: client.result(sid, timeout=timeout_s, poll_interval=FLEET_POLL_S)["tokens"]
+                       for rid, sid in ids.items()}
+            served = {r["replica"]: r["requests_done"] for r in client.stats()["replicas"]}
+            _wait(lambda: events("fleet.scale.retired"), 120, "the scale-in's retirement")
+            stats = client.stats()
+        # the probation gate: a canary's TTFT closed the spawned replica's
+        # breaker (the router logs the transition; nothing drained the log)
+        breaker_closed = any("breaker CLOSED on replica 1" in line for line in router._log)
+        up, admitted, retired = events("fleet.scale.up"), events("fleet.scale.admitted"), events("fleet.scale.retired")
+        scale = dict(
+            streams_equal_serve_engine=all(streams[i] == base[i] or streams[i] == full[i] for i in base),
+            streams_equal_base=streams == base, differing=[i for i in base if streams.get(i) != base[i]],
+            scale_ups=len(up), spawned_on_card=on_card, breaker_closed=breaker_closed,
+            spawn_to_up_s=admitted[0]["warm_s"], retired_mode=retired[0]["mode"],
+            requeued=stats["routing"]["requeued"], failed=stats["routing"]["failed"],
+            done_by_replica_before_scale_in=served,
+            events=[(e["event"], e.get("replica"), e.get("reason") or e.get("mode")) for e in scaler.snapshot()["events"]],
+        )
+        scale_ok = (scale["streams_equal_serve_engine"] and len(up) == 1 and on_card and breaker_closed
+                    and scale["failed"] == 0 and len(retired) == 1)
+        out["autoscale"] = scale
+        ok = ok and scale_ok
+    finally:
+        router.stop()
+    emit("serve.fleet", ok=ok, slots=num_slots, requests=len(requests), **out,
+         max_memory_allocated_gib=_peak_gib(torch, dev), card=card)
+    if not ok:
+        raise SystemExit(f"serve.fleet failed: {out}")
+
+
+def phase_serve_cli(torch, card: str, slots=4, n=4, prompt_len=256, max_new=32, start_s=600, timeout_s=300,
+                    fleet=None):
     """``python -m maggy_tpu_torch.serve --config llama3_8b --slots 4`` as its
     own process on ``cuda:0`` (random init from its seed): its address and
     secret read from its stderr, four requests through ``ServeClient``, all
     done; SIGTERM, then exit 0 within 60 s. Prints the parameter init time,
     the process's start-up, the first request's TTFT and its peak memory.
-    Every wait has its own timeout, and the process is killed if the phase
-    fails."""
+    With ``fleet=(replicas, prefill_replicas)`` the process serves a fleet
+    (``serve.cli.fleet``): a router over that many replicas on the card,
+    every request handed off through a prefill replica. Every wait has its
+    own timeout, and the process is killed if the phase fails."""
     import queue
     import re
     import signal
@@ -2006,6 +2374,8 @@ def phase_serve_cli(torch, card: str, slots=4, n=4, prompt_len=256, max_new=32, 
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     cmd = [sys.executable, "-m", "maggy_tpu_torch.serve", "--config", "llama3_8b", "--slots", str(slots),
            "--host", "127.0.0.1", "--port", "0"]
+    if fleet:
+        cmd += ["--replicas", str(fleet[0]), "--prefill-replicas", str(fleet[1])]
     lines: "queue.Queue[str]" = queue.Queue()
     log = []
 
@@ -2052,12 +2422,18 @@ def phase_serve_cli(torch, card: str, slots=4, n=4, prompt_len=256, max_new=32, 
             proc.wait(timeout=30)
     ok = (rc == 0 and all(s["state"] == "done" and s["n_tokens"] == max_new for s in snaps)
           and stats["requests_failed"] == 0)
-    emit("serve.cli", ok=ok, cmd=" ".join(cmd[1:]), exit_code=rc, exit_s=exit_s, params_init_s=init_s,
+    extra = {}
+    if fleet:
+        extra = dict(replicas=[(r["replica"], r["role"], r["state"]) for r in stats["replicas"]],
+                     routing=stats["routing"])
+        ok = ok and len(stats["replicas"]) == sum(fleet) and stats["routing"]["handoffs"] == n
+    phase = "serve.cli.fleet" if fleet else "serve.cli"
+    emit(phase, ok=ok, cmd=" ".join(cmd[1:]), exit_code=rc, exit_s=exit_s, params_init_s=init_s,
          startup_s=up_s, first_ttft_ms=first["ttft_ms"], first_request_s=first_s,
          done=sum(s["state"] == "done" for s in snaps), tpot_ms_p50=stats["tpot_ms_p50"],
-         peak_allocated_gib=peak, card=card)
+         peak_allocated_gib=peak, **extra, card=card)
     if not ok:
-        raise SystemExit(f"serve.cli failed: rc {rc}, states {[s['state'] for s in snaps]}")
+        raise SystemExit(f"{phase} failed: rc {rc}, states {[s['state'] for s in snaps]}")
 
 
 def phase_lagom_train(torch, cfg, seq: int, steps: int, card: str, train_step_ms):
@@ -2249,6 +2625,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     # a crash in native code prints every thread's Python stack first
     faulthandler.enable()
+    faulthandler.dump_traceback_later(RUN_DEADLINE_S, exit=True)
 
     import torch
 
@@ -2300,16 +2677,26 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     requests = engine_requests(torch, master.cfg)
-    streams, step_ms = phase_serve_engine(torch, master, card, requests)
+    streams, full, step_ms = phase_serve_engine(torch, master, card, requests)
     # the serving stack over the same weights: the scheduler behind the RPC
     # server, then page pressure with the host tier and the prefill
-    # handoff; then the CLI in its own process, after the weights are gone
+    # handoff; then the fleet over one copy of the serving weights (the
+    # fp32 masters of the projections freed first); then the CLI in its
+    # own process, one engine and a fleet, after the weights are gone
     phase_serve_sched(torch, master, card, requests, streams, step_ms)
     phase_serve_tier(torch, master, card, requests, streams)
+    from maggy_tpu_torch.serve.engine import serving_state
+
+    serving, cfg = serving_state(master.cfg, master, master.embedding.device), master.cfg
     del master
     gc.collect()
     torch.cuda.empty_cache()
+    phase_serve_fleet(torch, cfg, serving, card, requests, streams, full, step_ms)
+    del serving
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_serve_cli(torch, card)
+    phase_serve_cli(torch, card, fleet=(2, 1))
     # the HPO control plane on top: the `train` configuration as two trials
     phase_lagom_train(torch, DecoderConfig.llama3_8b(n_layers=N_LAYERS), S, LAGOM_STEPS, card, train_step_ms)
     # the rest of the Trainer: checkpoints, the preemption save and resume
@@ -2327,6 +2714,7 @@ def main(argv=None) -> int:
              **{k: v for k, v in rows[name].items() if k not in ("tflops", "share_of_bound", "ptxas")})
         for name in SOURCES
     ]
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ disaggregated-prefill handoff; the QoS-aware :class:`Scheduler` (admission
 by class, quotas, priority preemption); and the RPC front-end
 (:class:`ServeServer`), :class:`ServeClient`, the traffic replay of
 :mod:`~maggy_tpu_torch.serve.loadgen` and the CLI. The fleet (router,
-replicas, autoscaler) is ROADMAP queue 1 item 6e.
+replicas, disaggregated prefill, autoscaler) is
+:mod:`maggy_tpu_torch.serve.fleet`.
 
     # server:  python -m maggy_tpu_torch.serve --config llama3_8b --slots 8
     # client:

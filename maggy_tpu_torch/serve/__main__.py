@@ -11,13 +11,20 @@ the CPU)::
 Without ``--checkpoint`` the model is randomly initialized on the device
 (``--seed``) — the demo/smoke path. The process prints the address and the
 RPC secret on stderr; point clients
-(:class:`maggy_tpu_torch.serve.ServeClient`) at it. SIGTERM drains nothing:
-it stops the scheduler and the RPC server and exits 0. With ``--exp-dir``
-the engine's telemetry lands in ``<exp_dir>/telemetry/worker_serve.jsonl``.
+(:class:`maggy_tpu_torch.serve.ServeClient`) at it. SIGTERM stops the
+scheduler (or the router and its replicas) and the RPC server and exits 0.
+With ``--exp-dir`` the engine's telemetry lands in
+``<exp_dir>/telemetry/worker_serve.jsonl``.
+
+``--replicas N`` (N > 1) or ``--prefill-replicas M`` serves a fleet: a
+:class:`~maggy_tpu_torch.serve.fleet.Router` on the address over N decode
+replicas (plus M prefill replicas), leasing cards round-robin and sharing
+one copy of the serving weights per card::
+
+    python -m maggy_tpu_torch.serve --config llama3_8b --replicas 2 --prefill-replicas 1
 
 Not ported yet, and refused before anything loads: a ``--mesh`` other than
-``none`` (ROADMAP queue 1 item 7; ``auto`` consults the tuner, item 9), and
-a fleet (``--replicas`` above 1, ``--prefill-replicas``; item 6e).
+``none`` (ROADMAP queue 1 item 7; ``auto`` consults the tuner, item 9).
 """
 
 from __future__ import annotations
@@ -87,11 +94,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             f"--mesh {args.mesh}: a sharded engine is not ported yet (ROADMAP queue 1 item 7)"
         )
-    if args.replicas > 1 or args.prefill_replicas:
-        raise NotImplementedError(
-            "--replicas/--prefill-replicas serve a fleet, which is not ported yet "
-            "(ROADMAP queue 1 item 6e)"
-        )
 
 
 def main(argv=None) -> int:
@@ -121,9 +123,13 @@ def main(argv=None) -> int:
                         help="directory for telemetry JSONL export")
     parser.add_argument("--name", default="maggy-serve")
     parser.add_argument("--replicas", type=int, default=1,
-                        help=">1 serves a fleet (not ported yet)")
+                        help=">1 serves a fleet: a router front-end over N "
+                             "engine replicas")
     parser.add_argument("--slo-ttft-ms", type=float,
-                        help="TTFT budget: SSTATS counts slo_ok/slo_miss attainment")
+                        help="TTFT budget: fleet admission sheds/queues "
+                             "requests whose projected TTFT exceeds it; "
+                             "single-engine mode counts slo_ok/slo_miss "
+                             "attainment in SSTATS")
     parser.add_argument("--admission", choices=("queue", "shed"),
                         default="queue",
                         help="fleet behavior when projection exceeds the SLO")
@@ -141,13 +147,16 @@ def main(argv=None) -> int:
                         help="KV page pool size; default reserves the dense "
                              "equivalent (slots x max_seq_len/page_size + 1)")
     parser.add_argument("--prefill-replicas", type=int, default=0,
-                        help="disaggregated fleet (not ported yet)")
+                        help="disaggregated fleet: N extra prefill-only "
+                             "replicas; prompts prefill there and the KV "
+                             "packs hand off to decode replicas")
     args = parser.parse_args(argv)
     if args.prefill_replicas and args.replicas < 1:
         raise SystemExit("--prefill-replicas needs at least one decode replica")
     _refuse_unported(args)
 
     from maggy_tpu_torch.serve import Engine, Scheduler, ServeServer
+    from maggy_tpu_torch.serve.engine import serving_state
     from maggy_tpu_torch.telemetry import worker_telemetry
     from maggy_tpu_torch.util import resolve_device
 
@@ -162,22 +171,51 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(dev)  # the init ran on the card: time it whole
     src = args.checkpoint or f"random init (seed {args.seed})"
     print(f"[serve] params from {src} on {dev} in {time.time() - t0:.3f}s", file=sys.stderr)
+    # the projections cast once; the fp32 masters of them go
+    params = serving_state(cfg, params, dev)
 
     tel = None
     if args.exp_dir:
         tel = worker_telemetry("serve", args.exp_dir, role="serve")
-    engine = Engine(
-        cfg, params, num_slots=args.slots, device=dev,
-        telemetry_recorder=tel, paged=args.paged,
-        page_size=args.page_size, num_pages=args.num_pages,
-    )
-    del params
-    scheduler = Scheduler(engine, slo_ttft_ms=args.slo_ttft_ms)
-    server = ServeServer(scheduler, secret=args.secret, name=args.name)
-    host, port = server.start(host=args.host, port=args.port)
+    if args.replicas > 1 or args.prefill_replicas > 0:
+        from maggy_tpu_torch.serve.fleet import ReplicaSpec, launch_fleet
+
+        tel_factory = None
+        if args.exp_dir:
+            tel_factory = lambda i: worker_telemetry(  # noqa: E731
+                f"replica{i}", args.exp_dir, role="serve"
+            )
+        spec = ReplicaSpec(
+            cfg, params, num_slots=args.slots, device=dev,
+            telemetry_factory=tel_factory, paged=args.paged,
+            page_size=args.page_size, num_pages=args.num_pages,
+        )
+        server = launch_fleet(
+            spec, replicas=args.replicas, secret=args.secret, name=args.name,
+            slo_ttft_ms=args.slo_ttft_ms, admission=args.admission,
+            max_restarts=args.max_restarts, telemetry_recorder=tel,
+            prefill_replicas=args.prefill_replicas,
+        )
+        host, port = server.start(host=args.host, port=args.port)
+        what = f"fleet router ({args.replicas} replicas"
+        if args.prefill_replicas:
+            what += f" + {args.prefill_replicas} prefill"
+        what += ")"
+    else:
+        engine = Engine(
+            cfg, params, num_slots=args.slots, device=dev,
+            telemetry_recorder=tel, paged=args.paged,
+            page_size=args.page_size, num_pages=args.num_pages,
+        )
+        scheduler = Scheduler(engine, slo_ttft_ms=args.slo_ttft_ms)
+        server = ServeServer(scheduler, secret=args.secret, name=args.name)
+        host, port = server.start(host=args.host, port=args.port)
+        what = "engine"
     print(
-        f"[serve] engine listening on {host}:{port}\n"
-        f"[serve] secret: {server.secret}",
+        f"[serve] {what} listening on {host}:{port}\n"
+        f"[serve] secret: {server.secret}\n"
+        f"[serve] monitor: python -m maggy_tpu_torch.monitor {host}:{port} "
+        f"{server.secret} --dashboard",
         file=sys.stderr, flush=True,
     )
 

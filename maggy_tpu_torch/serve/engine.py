@@ -73,6 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -144,19 +145,28 @@ def sample_rows(logits, temp, top_k, seeds, gen_idx) -> torch.Tensor:
     return torch.where(temp > 0.0, sampled, greedy).to(torch.int32)
 
 
-def serving_model(cfg, params, device) -> Decoder:
-    """A ``Decoder`` over ``params`` (a state_dict or a module) whose
-    projection weights are cast to ``cfg.dtype`` once; norm scales and the
-    embedding are the fp32 masters themselves, not copies."""
+def serving_state(cfg, params, device) -> Dict[str, torch.Tensor]:
+    """``params`` (a state_dict or a module) on ``device`` with every
+    projection weight cast to ``cfg.dtype``; norm scales and the embedding
+    stay the fp32 masters themselves, not copies. A state that already is a
+    serving state on ``device`` comes back as the same tensors, so engines
+    built over it share one copy of the weights."""
     if isinstance(params, nn.Module):
         params = params.state_dict()
-    model = Decoder(cfg, device="meta")
-    dense = {name + ".weight" for name, mod in model.named_modules() if isinstance(mod, Dense)}
+    meta = Decoder(cfg, device="meta")
+    dense = {name + ".weight" for name, mod in meta.named_modules() if isinstance(mod, Dense)}
     state = {}
     for name, t in params.items():
         t = t.to(device)
         state[name] = t.to(cfg.dtype) if name in dense else t
-    model.load_state_dict(state, assign=True)
+    return state
+
+
+def serving_model(cfg, params, device) -> Decoder:
+    """A ``Decoder`` over :func:`serving_state`'s tensors: projection
+    weights cast to ``cfg.dtype`` once, the rest the fp32 masters."""
+    model = Decoder(cfg, device="meta")
+    model.load_state_dict(serving_state(cfg, params, device), assign=True)
     return model.eval()
 
 
@@ -204,6 +214,13 @@ class Engine:
     calls. ``params`` are the trained weights: a ``Decoder`` or its
     ``state_dict``. ``device`` defaults to CUDA and raises without it; pass
     ``device="cpu"`` to serve on the CPU.
+
+    ``host_lock`` is held by the scheduler's loop around each pass of
+    launches (admissions, the decode step) and by a prefill worker around
+    ``prefill_only``. Engines on one card in one process share one, so their
+    loops take turns: every PyTorch op releases and retakes the interpreter
+    lock, and two decode loops running at once trade it at each of a step's
+    thousands of launches. Each engine has its own by default.
     """
 
     def __init__(
@@ -224,6 +241,7 @@ class Engine:
         tier_host_pages: Optional[int] = None,
         tier_low_water_pct: Optional[float] = None,
         device=None,
+        host_lock=None,
     ):
         if cfg.decode:
             raise BadArgumentsError(
@@ -238,6 +256,7 @@ class Engine:
             # the card this engine allocates on, named: the scheduler's loop
             # thread makes it current
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self.host_lock = host_lock if host_lock is not None else threading.RLock()
         self.cfg = cfg
         self.params = params.state_dict() if isinstance(params, nn.Module) else dict(params)
         self.slots = SlotManager(num_slots)

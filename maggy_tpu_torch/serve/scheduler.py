@@ -587,7 +587,13 @@ class Scheduler:
             if ch is not None:
                 slow_s = ch.replica_slow(self.replica_index)
                 if slow_s > 0:
-                    time.sleep(slow_s)
+                    # a gray replica, not a gray card: the loop's pass holds
+                    # the host lock, which the card's other engines wait on
+                    self.engine.host_lock.release()
+                    try:
+                        time.sleep(slow_s)
+                    finally:
+                        self.engine.host_lock.acquire()
             if req.cancel_requested:
                 with self._lock:
                     self._finish(req, rq.CANCELLED)
@@ -834,42 +840,52 @@ class Scheduler:
         finally:
             wd.end("serve.loop")
 
+    def _pass(self, tel) -> bool:
+        """Sweep, admit, preempt and take one decode step; False when no
+        slot is active (the loop then waits for work)."""
+        now = time.time()
+        self._sweep_active(now)
+        self._maybe_reconfigure()
+        self._admit_ready(now)
+        if self.autopilot is not None:
+            self.autopilot.maybe_sample(now)
+
+        self._preempt_for_pages()
+        active = self.engine.slots.active_slots()
+        if not active:
+            # async decode leaves the last dispatch in flight when the
+            # active set empties (its rows all belong to finished
+            # requests); retire it so no device refs linger across idle
+            self.engine.flush()
+            return False
+        t0 = time.perf_counter()
+        out = self.engine.step()
+        dt = time.perf_counter() - t0
+        now = time.time()
+        for slot, token in out.tokens.items():
+            req = self.engine.slots.get(slot).request
+            with self._lock:
+                finished = self._emit(req, token, now)
+            if finished:
+                self._release_slot(slot)
+        rate = len(out.tokens) / dt if dt > 0 else 0.0
+        with self._lock:
+            self._tok_rate_ema = (
+                rate if self._tok_rate_ema == 0.0
+                else 0.9 * self._tok_rate_ema + 0.1 * rate
+            )
+            ema = self._tok_rate_ema
+        tel.gauge("serve.tokens_per_sec", ema)
+        return True
+
     def _loop_body(self, tel, last_flush, wd) -> None:
         while not self._stop.is_set():
             wd.beat("serve.loop")
-            now = time.time()
-            self._sweep_active(now)
-            self._maybe_reconfigure()
-            self._admit_ready(now)
-            if self.autopilot is not None:
-                self.autopilot.maybe_sample(now)
-
-            self._preempt_for_pages()
-            active = self.engine.slots.active_slots()
-            if active:
-                t0 = time.perf_counter()
-                out = self.engine.step()
-                dt = time.perf_counter() - t0
-                now = time.time()
-                for slot, token in out.tokens.items():
-                    req = self.engine.slots.get(slot).request
-                    with self._lock:
-                        finished = self._emit(req, token, now)
-                    if finished:
-                        self._release_slot(slot)
-                rate = len(out.tokens) / dt if dt > 0 else 0.0
-                with self._lock:
-                    self._tok_rate_ema = (
-                        rate if self._tok_rate_ema == 0.0
-                        else 0.9 * self._tok_rate_ema + 0.1 * rate
-                    )
-                    ema = self._tok_rate_ema
-                tel.gauge("serve.tokens_per_sec", ema)
-            else:
-                # async decode leaves the last dispatch in flight when the
-                # active set empties (its rows all belong to finished
-                # requests); retire it so no device refs linger across idle
-                self.engine.flush()
+            # one pass of launches at a time among the engines sharing
+            # this lock (Engine's host_lock); the idle wait is outside it
+            with self.engine.host_lock:
+                busy = self._pass(tel)
+            if not busy:
                 with self._wake:
                     if not self._queue and not self._stop.is_set():
                         self._wake.wait(timeout=IDLE_WAIT_S)

@@ -14,8 +14,8 @@ length-framed JSON over TCP, secret-authenticated) with a serving verb set:
 * ``METRICS`` — the scheduler's time-series store as a versioned snapshot
   (``telemetry/timeseries.py``), for the router's fleet merge and
   ``tools/metrics_query.py``
-* ``STATUS`` / ``LOG`` — the monitor's dashboard verbs (the monitor itself
-  is ROADMAP queue 1 item 9).
+* ``STATUS`` / ``LOG`` — the monitor's dashboard verbs
+  (:mod:`maggy_tpu_torch.monitor`).
 
 Handlers only touch the scheduler's lock-guarded host state — never device
 work — so the socket loop stays responsive under load (the same contract the

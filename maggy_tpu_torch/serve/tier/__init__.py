@@ -2,8 +2,8 @@
 
 The port's copy of :mod:`maggy_tpu.serve.tier`; the host pool holds CPU
 ``torch`` tensors (pinned when the serving device is a CUDA card), so bf16
-pages cross the boundary bit for bit. The router that reads the prefix map
-comes with the fleet (ROADMAP queue 1 item 6e).
+pages cross the boundary bit for bit. The fleet's router
+(:mod:`maggy_tpu_torch.serve.fleet.router`) reads the prefix map.
 
 HBM is the only KV tier a replica has by default, and prefix reuse is
 per-replica — so at fleet scale the same system prompt prefills N times

@@ -45,6 +45,7 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
         "import maggy_tpu_torch.serve.scheduler, maggy_tpu_torch.serve.server, maggy_tpu_torch.serve.client\n"
         "import maggy_tpu_torch.serve.loadgen, maggy_tpu_torch.serve.tier, maggy_tpu_torch.serve.__main__\n"
         "import maggy_tpu_torch.telemetry.alerts, maggy_tpu_torch.telemetry.profcap\n"
+        "import maggy_tpu_torch.serve.fleet, maggy_tpu_torch.monitor, maggy_tpu_torch.telemetry.metrics\n"
         "from maggy_tpu_torch.ops import _build\n"
         "from maggy_tpu_torch.train import native_loader\n"
         "print(sorted(sys.modules))\n"
@@ -60,6 +61,7 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
     assert [m for m in modules if _forbidden(m)] == []
     assert "maggy_tpu_torch.train" in modules and "maggy_tpu_torch.serve.engine" in modules
     assert "maggy_tpu_torch.serve.__main__" in modules and "maggy_tpu_torch.serve.tier.host_pool" in modules
+    assert "maggy_tpu_torch.serve.fleet.router" in modules and "maggy_tpu_torch.serve.fleet.autoscale" in modules
     assert out[1] == "0 False False"  # no kernel or batcher library loaded, no triton
 
 
@@ -67,7 +69,9 @@ def _sources():
     files = sorted((REPO / "maggy_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     serving = {"serve/__main__.py", "serve/scheduler.py", "serve/server.py", "serve/client.py", "serve/loadgen.py",
-               "serve/tier/host_pool.py", "telemetry/alerts.py", "telemetry/profcap.py"}
+               "serve/tier/host_pool.py", "telemetry/alerts.py", "telemetry/profcap.py",
+               "serve/fleet/__init__.py", "serve/fleet/replica.py", "serve/fleet/prefill.py",
+               "serve/fleet/router.py", "serve/fleet/autoscale.py", "monitor.py", "telemetry/metrics.py"}
     assert serving <= {str(f.relative_to(REPO / "maggy_tpu_torch")) for f in files[:-1]}
     return files
 

@@ -1,8 +1,8 @@
 """``python -m maggy_tpu_torch.serve`` on the CPU: ``build_config``, a
 params-only restore through the port's ``Checkpointer``, the CLI as a
-subprocess serving a restored checkpoint over RPC (its greedy stream equals
-an in-process engine's over the same weights, and SIGTERM exits 0), and the
-refusals of what the port does not have yet."""
+subprocess serving a restored checkpoint over RPC from one engine and from a
+fleet (its greedy streams equal an in-process engine's over the same weights,
+and SIGTERM exits 0), and the refusals of what the port does not have yet."""
 
 import json
 import os
@@ -112,11 +112,54 @@ def test_cli_serves_a_checkpoint_over_rpc(tmp_path):
             proc.wait(timeout=30)
 
 
+def test_cli_serves_a_fleet_over_rpc(tmp_path):
+    """``--replicas 2 --prefill-replicas 1``: a router on the address over
+    two decode replicas and one prefill replica; every greedy stream
+    equals an in-process engine's over the same checkpoint, every request
+    goes through the prefill replica's handoff, and SIGTERM exits 0."""
+    cfg = DecoderConfig.tiny()
+    model, path = _checkpoint(tmp_path, cfg)
+    prompts = [PROMPT, PROMPT[:3], [7, 7, 2, 9, 30, 31], [11, 12]]
+    engine = Engine(cfg, model, num_slots=1, device="cpu", async_decode=False)
+    want = []
+    for prompt in prompts:
+        slot, first = engine.admit(Request(prompt=prompt, params=SamplingParams(max_new=5)))
+        stream = [first]
+        while len(stream) < 5:
+            stream.append(engine.step().tokens[slot])
+        engine.release(slot)
+        want.append(stream)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "maggy_tpu_torch.serve", "--config", "tiny", "--slots", "2", "--device", "cpu",
+         "--checkpoint", path, "--host", "127.0.0.1", "--port", "0", "--replicas", "2",
+         "--prefill-replicas", "1", "--slo-ttft-ms", "60000"],
+        cwd=str(tmp_path), env=env, stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True,
+    )
+    try:
+        addr, secret = _read_address(proc)
+        with ServeClient(addr, secret) as client:
+            ids = [client.submit(p, max_new=5) for p in prompts]
+            got = [client.result(i, timeout=60)["tokens"] for i in ids]
+            stats = client.stats()
+        assert got == want
+        assert stats["fleet"] is True and len(stats["replicas"]) == 3
+        assert [r["role"] for r in stats["replicas"]] == ["decode", "decode", "prefill"]
+        assert stats["routing"]["handoffs"] == stats["routing"]["completed"] == len(prompts)
+        assert stats["slo_ttft_ms"] == 60000
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
 @pytest.mark.parametrize("argv, item", [
     (["--mesh", "fsdp"], "item 7"),
     (["--mesh", "auto"], "item 9"),
-    (["--replicas", "2"], "item 6e"),
-    (["--prefill-replicas", "1"], "item 6e"),
+    (["--replicas", "2", "--mesh", "fsdp"], "item 7"),
+    (["--prefill-replicas", "1", "--mesh", "auto"], "item 9"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP queue 1 {item}")):

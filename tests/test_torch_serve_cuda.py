@@ -257,3 +257,67 @@ def test_scheduler_on_the_second_card_leaves_the_first_alone(dev):
     assert all(r.state == "done" for r in reqs), [(r.state, r.error) for r in reqs]
     assert [r.tokens for r in reqs] == _drive(Engine(CFG, _model(other), num_slots=3, device=other), _jobs())
     assert torch.cuda.memory_allocated(0) == base
+
+
+def test_fleet_replicas_share_one_copy_of_the_weights_on_the_card(dev):
+    """Three replicas leased on one card build their engines over one
+    serving state: every projection weight is one storage, and the three
+    replicas together hold one bf16 copy of the projections."""
+    from maggy_tpu_torch.models.transformer import Dense
+    from maggy_tpu_torch.serve.fleet import ReplicaSpec, build_replicas
+
+    model = _model(dev)
+    fleet = build_replicas(ReplicaSpec(CFG, model.state_dict(), num_slots=2, device="cuda:0"), 3, "s3cret")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(0)
+    for r in fleet:
+        r.start()
+    try:
+        engines = [r.server.scheduler.engine for r in fleet]
+        names = [n for n, m in engines[0].model.named_modules() if isinstance(m, Dense)]
+        for n in names:
+            ptrs = {e.model.get_submodule(n).weight.data_ptr() for e in engines}
+            assert len(ptrs) == 1, n
+            assert engines[0].model.get_submodule(n).weight.dtype == CFG.dtype
+        # the engines added their KV pools and workspaces, not weights
+        pools = sum(e.cache.k.numel() * e.cache.k.element_size() * 2 for e in engines)
+        dense_bytes = sum(engines[0].model.get_submodule(n).weight.numel() * 2 for n in names)
+        assert torch.cuda.memory_allocated(0) - before < pools + dense_bytes
+    finally:
+        for r in fleet:
+            r.stop(drain=False)
+
+
+def test_killed_replica_frees_its_kv_pool_without_the_collector(dev):
+    """``Replica.kill()`` lets go of the engine: its KV pool leaves the card
+    with the cyclic collector off, and a respawn brings the card's memory
+    back to its value before the kill."""
+    import gc
+
+    from maggy_tpu_torch.serve.fleet import ReplicaSpec, build_replicas
+
+    fleet = build_replicas(ReplicaSpec(CFG, _model(dev).state_dict(), num_slots=4, device="cuda:0"), 2, "s3cret")
+    for r in fleet:
+        r.start()
+    try:
+        cache = fleet[1].server.scheduler.engine.cache
+        pool = cache.k.numel() * cache.k.element_size() * 2
+        del cache
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(0)
+        gc.disable()
+        try:
+            fleet[1].kill()
+            torch.cuda.synchronize()
+            freed = before - torch.cuda.memory_allocated(0)
+            fleet[1].respawn()
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated(0)
+        finally:
+            gc.enable()
+        assert freed >= pool, (freed, pool)
+        assert abs(after - before) < pool // 4, (after, before)
+        assert fleet[1].alive() and fleet[1].restarts == 1
+    finally:
+        for r in fleet:
+            r.stop(drain=False)

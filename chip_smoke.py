@@ -133,7 +133,29 @@ Phases, each printing one line:
             ``train``) stands beside the ``train`` phase's, with the gaps
             between broadcasts and their median as a side figure, and the
             study's wall time beside the union of the ``train_fn`` windows.
-12. train.resume  the ``train`` configuration from disk: seeded tokens
+12. lagom.ablation  the ablation experiment: two LOCO studies under the
+            port's ``lagom(train_fn, AblationConfig(...))``, no factory, the
+            config model on the meta device, each trial on its leased card.
+            BERT-base (BASELINE config 4: 12 layers, d 768, 12 heads, d_ff
+            3072, vocab 30,522, S=512) over ``layer_0``, ``layer_11``,
+            ``pooler``, ``position_embeddings`` and the feature
+            ``attention_mask`` (6 trials) on a seeded dataset with padded
+            tails, each trial a warm-up and 10 AdamW steps at B=32 in bf16
+            (dropout on): every trial's variant new and on the meta device,
+            its parameter count the base's less exactly the dropped
+            component's own, the feature trial's dataset without the key,
+            no marker in any ``hparams``, finite losses, no flash launch (as
+            in JAX, BERT's attention is the plain blockwise version), and
+            the full model's bf16 forward within 5e-2 relative L2 of its
+            fp32 forward. Then the ``train`` Decoder over ``mlp`` and
+            ``layers.1`` (3 trials of a warm-up step and 3 fit steps): the
+            flash kernels launched 3 x (1 + 3) x the ``train`` step's count
+            (a gate multiplies; it skips nothing), the gated components'
+            last gradients exactly zero through the CUDA dQ and dK/dV
+            kernels and the baseline's not, each trial's step within 1.25 x
+            ``train``'s. After both: no executor thread left and the card's
+            memory back within 1 GiB. Steps/s, peaks, times; budget 120 s.
+13. train.resume  the ``train`` configuration from disk: seeded tokens
             written by ``write_sharded`` into a temporary directory, read
             through ``ShardedDataset`` and the native batcher (it must be
             native) into ``fit``'s prefetcher (depth 2). Run A takes 8
@@ -150,7 +172,7 @@ Phases, each printing one line:
             checkpoints. It prints the bytes a checkpoint, each save's
             blocked and commit time, the restore time, the step through
             the prefetcher and ``input_wait_ms``.
-13. train.remat  one forward and backward of the ``train`` configuration on
+14. train.remat  one forward and backward of the ``train`` configuration on
             one batch under ``remat=False``, ``"nothing"``, ``"dots"`` and
             ``"dots_attn"``, from the same parameters, gradients cleared
             between them: the loss and every gradient equal to
@@ -158,7 +180,8 @@ Phases, each printing one line:
             4 and backward 4 + 4 under each; each policy's time and peak.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches: those of
-``train``, ``ring.train``, ``train.resume`` and ``train.remat``), the card's name and power limit, and as
+``train``, ``ring.train``, ``lagom.ablation``'s Decoder study, ``train.resume``
+and ``train.remat``), the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before that line. With no CUDA it exits non-zero at once.
 """
@@ -245,6 +268,32 @@ TOL_SERVE_LOGITS_REL_L2 = 1e-1
 LAGOM_TRIALS = 2
 LAGOM_STEPS = 4
 LAGOM_HB = 0.5
+# lagom.ablation: two LOCO studies under the port's lagom. BERT-base (BASELINE
+# config 4: 12 layers, d 768, 12 heads, d_ff 3072, vocab 30,522, S=512) over
+# two layers, the pooler, the position embeddings and the attention mask,
+# each trial ABL_BERT_STEPS AdamW steps (after a warm-up step) at B=32 in
+# bf16 on a synthetic dataset of ABL_BERT_ROWS rows with padded tails; then
+# the `train` Decoder over the MLPs and layer 1, each trial a warm-up step
+# and ABL_DECODER_STEPS fit steps. The phase's budget is ABL_BUDGET_S
+ABL_BERT_B = 32
+ABL_BERT_ROWS = 64
+ABL_BERT_STEPS = 10
+ABL_BERT_COMPONENTS = ("layer_0", "layer_11", "pooler", "position_embeddings")
+ABL_BERT_FEATURE = "attention_mask"
+ABL_DECODER_COMPONENTS = ("mlp", "layers.1")
+ABL_DECODER_STEPS = 3
+ABL_BUDGET_S = 120
+# BERT-base's bf16 forward against its fp32 forward on the same weights and
+# eight rows of the dataset (eval mode): every projection, LayerNorm output
+# and residual add rounds to bf16, through 12 layers; a CPU rehearsal at
+# these widths measured 1.1e-2 on the sequence output and 1.5e-2 on the two
+# pooled logits a row
+TOL_BERT_BF16_REL_L2 = 5e-2
+# a Decoder trial's step (fit's mean, as in `train`) against the `train`
+# phase's: the gates add two multiplies a layer
+ABL_STEP_FACTOR = 1.25
+# the card's allocated memory after both studies against before the phase
+ABL_MEMORY_MARGIN_GIB = 1.0
 # train.resume: the `train` configuration from ROWS rows of tokens written as
 # SHARDS shards; run A takes STEPS steps, run B checkpoints every EVERY steps
 # until a preemption notice after step NOTICE, run C resumes it. A checkpoint
@@ -664,7 +713,7 @@ def tensor_checksums(torch, model) -> list:
 
 
 def phase_train_resume(torch, cfg, seq: int, card: str, train_peak, train_step_ms):
-    """Phase 12: the ``train`` configuration from shards on local disk,
+    """Phase 13: the ``train`` configuration from shards on local disk,
     through the native batcher and fit's prefetcher: run A uninterrupted;
     run B checkpointing every RESUME_EVERY steps until a preemption notice
     after step RESUME_NOTICE; run C from other weights with
@@ -799,7 +848,7 @@ def phase_train_resume(torch, cfg, seq: int, card: str, train_peak, train_step_m
 
 
 def phase_train_remat(torch, cfg, seq: int, card: str):
-    """Phase 13: one forward and backward of the ``train`` configuration on
+    """Phase 14: one forward and backward of the ``train`` configuration on
     one batch under each remat setting, from the same parameters, gradients
     cleared between them; each policy's loss and gradients must equal
     ``remat=False``'s bit for bit, and the flash forward must launch as the
@@ -2567,6 +2616,246 @@ def phase_lagom_train(torch, cfg, seq: int, steps: int, card: str, train_step_ms
     return launches
 
 
+def bert_dataset(cfg, rows: int, seq: int, seed: int = 0) -> dict:
+    """BERT's synthetic classification data from a seed: tokens, an
+    attention mask whose rows keep 1/4 to all of ``seq`` tokens (a padded
+    tail of 0s), and a label that a token of the kept part decides."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, cfg.vocab_size, (rows, seq)).astype(np.int64)
+    keep = rng.integers(seq // 4, seq + 1, (rows,))
+    mask = (np.arange(seq)[None, :] < keep[:, None]).astype(np.int64)
+    tokens = tokens * mask  # padding is token 0
+    return {"tokens": tokens, ABL_BERT_FEATURE: mask, "label": (tokens[:, 1] % 2).astype(np.int64)}
+
+
+def component_params(model, component: str) -> list:
+    """The names of ``model``'s parameters that belong to ``component`` of a
+    LOCO study (BERT's names: ``layer_<i>``, ``pooler``,
+    ``position_embeddings``)."""
+    if component == "position_embeddings":
+        return [n for n, _ in model.named_parameters() if n == "position_embedding"]
+    return [n for n, _ in model.named_parameters() if component in n.split(".")]
+
+
+def decoder_gated(component: str, name: str) -> bool:
+    """Whether the Decoder parameter ``name`` feeds only what ``component``
+    (``mlp`` or ``layers.<i>``) gates: its gradient must then be zero."""
+    if component == "mlp":
+        return ".mlp." in name or ".mlp_norm." in name
+    return name.startswith(component + ".")
+
+
+def phase_lagom_ablation(torch, bert_cfg, dec_cfg, seq: int, steps: int, card: str, train_step_ms):
+    """Phase 12: two LOCO studies under the port's ``lagom``, each trial on
+    the card its executor leased: ``bert_cfg`` at its ``max_seq_len`` (no
+    flash kernel, as in JAX), then ``dec_cfg`` at B=2 and ``seq`` tokens
+    (the ``train`` configuration), whose trials, gated or not, train through
+    the flash kernels for a warm-up step and ``steps`` fit steps. Returns
+    the Decoder study's flash launches."""
+    import dataclasses
+    import gc
+    import tempfile
+    import threading
+
+    from maggy_tpu_torch import experiment
+    from maggy_tpu_torch.ablation import AblationStudy
+    from maggy_tpu_torch.config import AblationConfig
+    from maggy_tpu_torch.core import env as env_mod
+    from maggy_tpu_torch.core.env.base import BaseEnv
+    from maggy_tpu_torch.models import Bert, Decoder
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.train import Trainer, adamw, synthetic_lm_batches
+
+    t_phase = time.perf_counter()
+    gib = 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev0 = torch.device("cuda", torch.cuda.current_device())
+    base_bytes = torch.cuda.memory_allocated(dev0)
+    torch.cuda.reset_peak_memory_stats(dev0)
+    data = bert_dataset(bert_cfg, ABL_BERT_ROWS, bert_cfg.max_seq_len)
+    bert_base = Bert(bert_cfg, device="meta")
+    dec_base = Decoder(dec_cfg, device="meta")
+    bert_recs, dec_recs, lock = [], [], threading.Lock()
+
+    def on_lease(model, dev) -> dict:
+        return dict(lease=str(dev), current=str(torch.device("cuda", torch.cuda.current_device())),
+                    params_on_lease=all(p.device == dev for p in model.parameters()))
+
+    def bert_fn(model, dataset, hparams, reporter, devices, ablated_feature, ablated_component):
+        dev = devices[0]
+        rec = dict(feature=ablated_feature, component=ablated_component, keys=sorted(dataset),
+                   hparams=dict(hparams), params=sum(p.numel() for p in model.parameters()),
+                   was_meta=all(p.is_meta for p in model.parameters()))
+        torch.cuda.reset_peak_memory_stats(dev)
+        start_bytes = torch.cuda.memory_allocated(dev)
+        model.to_empty(device=dev)
+        model.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+        model.train()  # dropout 0.1, from the model's own generator on the card
+        rec.update(on_lease(model, dev))
+        opt = adamw(1e-4)(model.parameters())
+        tokens = torch.as_tensor(dataset["tokens"], device=dev)
+        mask = dataset.get(ABL_BERT_FEATURE)
+        mask = None if mask is None else torch.as_tensor(mask, device=dev)
+        labels = torch.as_tensor(dataset["label"], device=dev)
+        losses = []
+        t0 = None
+        for i in range(1 + ABL_BERT_STEPS):
+            if i == 1:  # the first step is the warm-up, outside the time
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+            rows = slice((i * ABL_BERT_B) % len(labels), (i * ABL_BERT_B) % len(labels) + ABL_BERT_B)
+            logits, _ = model(tokens[rows], None if mask is None else mask[rows])
+            loss = torch.nn.functional.cross_entropy(logits, labels[rows])
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        losses = [float(v) for v in losses]  # one read, after the last step
+        dt = time.perf_counter() - t0
+        rec.update(losses=losses, steps_per_sec=ABL_BERT_STEPS / dt, step_ms=1e3 * dt / ABL_BERT_STEPS,
+                   peak_gib=(torch.cuda.max_memory_allocated(dev) - start_bytes) / gib)
+        with lock:
+            bert_recs.append(rec)
+        reporter.broadcast(losses[-1], step=ABL_BERT_STEPS)
+        return losses[-1]
+
+    def dec_fn(model, reporter, devices, ablated_component):
+        dev = devices[0]
+        rec = dict(component=ablated_component, was_meta=all(p.is_meta for p in model.parameters()))
+        trainer = Trainer(model, adamw(1e-4), device=dev)
+        batches = synthetic_lm_batches(dec_cfg.vocab_size, B, seq, seed=0)
+        state = trainer.make_state(0, next(batches))
+        rec.update(on_lease(state.model, dev))
+        state, _ = trainer.step(state, next(batches))  # warm-up, as in `train`
+        torch.cuda.synchronize(dev)
+        state, metrics = trainer.fit(state, batches, steps, reporter=reporter, report_every=1, metrics_window=0)
+        # the last step's gradients, left on the parameters by fit
+        rec.update(loss=metrics["loss"], step_ms=1e3 / metrics["steps_per_sec"],
+                   grad_max={n: float(p.grad.abs().max()) for n, p in state.model.named_parameters()})
+        with lock:
+            dec_recs.append(rec)
+        return metrics["loss"]
+
+    def run(train_fn, config):
+        with tempfile.TemporaryDirectory(prefix="lagom_ablation_") as root:
+            env_mod.set_instance(BaseEnv(root))  # logs in a temporary root, never the repo
+            try:
+                t0 = time.perf_counter()
+                return experiment.lagom(train_fn, config), time.perf_counter() - t0
+            finally:
+                env_mod.set_instance(None)
+
+    # BERT-base: config model on the meta device, no factory
+    bert_study = AblationStudy()
+    bert_study.features.include(ABL_BERT_FEATURE)
+    bert_study.model.layers.include(*ABL_BERT_COMPONENTS)
+    flash.reset_launches()
+    bert_result, bert_wall = run(bert_fn, AblationConfig(
+        bert_study, model=bert_base, dataset=data, direction="min", hb_interval=LAGOM_HB))
+    torch.cuda.synchronize()
+    bert_launches = dict(flash.LAUNCHES)
+
+    # the bf16 forward of the full model against its fp32 forward, same weights
+    fwd = Bert(bert_cfg, device=dev0, generator=torch.Generator(device=dev0).manual_seed(0)).eval()
+    fwd32 = Bert(dataclasses.replace(bert_cfg, dtype=torch.float32), device="meta")
+    fwd32.to_empty(device=dev0)
+    fwd32.load_state_dict(fwd.state_dict())
+    fwd32.eval()
+    rows = slice(0, 8)
+    tok8 = torch.as_tensor(data["tokens"][rows], device=dev0)
+    mask8 = torch.as_tensor(data[ABL_BERT_FEATURE][rows], device=dev0)
+    with torch.no_grad():
+        logits16, seq16 = fwd(tok8, mask8)
+        logits32, seq32 = fwd32(tok8, mask8)
+    bf16_err = dict(sequence=rel_l2(seq16, seq32), logits=rel_l2(logits16, logits32))
+    del fwd, fwd32, logits16, seq16, logits32, seq32
+
+    # the Decoder at the `train` widths and depth: gates, through the kernels
+    dec_study = AblationStudy()
+    dec_study.model.layers.include(*ABL_DECODER_COMPONENTS)
+    flash.reset_launches()
+    dec_result, dec_wall = run(dec_fn, AblationConfig(
+        dec_study, model=dec_base, direction="min", hb_interval=LAGOM_HB))
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    expected = {k: len(dec_recs) * (1 + steps) * v for k, v in flash_launches_per_step(dec_cfg.n_layers).items()}
+    left = [t.name for t in threading.enumerate() if t.name.startswith("maggy-executor")]
+    after_bytes = torch.cuda.memory_allocated(dev0)
+    peak = (torch.cuda.max_memory_allocated(dev0) - base_bytes) / gib
+
+    base_count = sum(p.numel() for p in bert_base.parameters())
+    base_params = dict(bert_base.named_parameters())
+    own = {c: sum(base_params[n].numel() for n in component_params(bert_base, c)) for c in ABL_BERT_COMPONENTS}
+    want_markers = {(None, None), (ABL_BERT_FEATURE, None)} | {(None, c) for c in ABL_BERT_COMPONENTS}
+    by_comp = {r["component"]: r for r in dec_recs}
+    base_rec = by_comp.get(None, {"grad_max": {}})
+    checks = {
+        "bert_trials_no_error": bert_result["num_trials"] == 2 + len(ABL_BERT_COMPONENTS)
+        and bert_result["errors"] == 0 and len(bert_recs) == 2 + len(ABL_BERT_COMPONENTS),
+        "bert_markers": {(r["feature"], r["component"]) for r in bert_recs} == want_markers,
+        "bert_fresh_meta_variants": all(r["was_meta"] for r in bert_recs),
+        "bert_on_lease": all(r["current"] == r["lease"] and r["params_on_lease"] for r in bert_recs),
+        "bert_param_counts": all(
+            r["params"] == base_count - (own[r["component"]] if r["component"] else 0) for r in bert_recs)
+        and all(own.values()),
+        "feature_trial_data": all(
+            (ABL_BERT_FEATURE not in r["keys"]) == (r["feature"] == ABL_BERT_FEATURE) for r in bert_recs),
+        "no_marker_in_hparams": all(
+            not {"ablated_feature", "ablated_component"} & set(r["hparams"]) for r in bert_recs),
+        "bert_losses_finite": all(math.isfinite(v) for r in bert_recs for v in r["losses"]),
+        "bert_launches_no_flash": not any(bert_launches.values()),
+        "bert_bf16_vs_fp32": max(bf16_err.values()) <= TOL_BERT_BF16_REL_L2,
+        "decoder_trials_no_error": dec_result["num_trials"] == 1 + len(ABL_DECODER_COMPONENTS)
+        and dec_result["errors"] == 0 and len(dec_recs) == 1 + len(ABL_DECODER_COMPONENTS),
+        "decoder_fresh_meta_variants": all(r["was_meta"] for r in dec_recs),
+        "decoder_on_lease": all(r["current"] == r["lease"] and r["params_on_lease"] for r in dec_recs),
+        "decoder_losses_finite": all(math.isfinite(r["loss"]) for r in dec_recs),
+        "launches": launches == expected,
+        "gated_grads_zero": all(
+            c in by_comp and all(g == 0.0 for n, g in by_comp[c]["grad_max"].items() if decoder_gated(c, n))
+            for c in ABL_DECODER_COMPONENTS),
+        "baseline_grads_nonzero": all(
+            g > 0.0 for c in ABL_DECODER_COMPONENTS for n, g in base_rec["grad_max"].items()
+            if decoder_gated(c, n)) and bool(base_rec["grad_max"]),
+        "no_executor_left": not left,
+        "memory_back": abs(after_bytes - base_bytes) <= ABL_MEMORY_MARGIN_GIB * gib,
+    }
+    if train_step_ms is not None:
+        checks["decoder_step_within_factor"] = all(r["step_ms"] <= ABL_STEP_FACTOR * train_step_ms for r in dec_recs)
+    phase_s = time.perf_counter() - t_phase
+    ok = all(checks.values())
+    emit(
+        "lagom.ablation", ok=ok, checks=checks, card=card,
+        bert=dict(
+            config=dict(n_layers=bert_cfg.n_layers, d_model=bert_cfg.d_model, n_heads=bert_cfg.n_heads,
+                        d_ff=bert_cfg.d_ff, vocab=bert_cfg.vocab_size, seq=bert_cfg.max_seq_len, batch=ABL_BERT_B,
+                        steps=ABL_BERT_STEPS),
+            trials=[dict(feature=r["feature"], component=r["component"], params=r["params"],
+                         loss_first=r["losses"][0], loss_last=r["losses"][-1], steps_per_sec=r["steps_per_sec"],
+                         step_ms=r["step_ms"], peak_gib=r["peak_gib"], lease=r["lease"]) for r in bert_recs],
+            base_params=base_count, component_params=own, bf16_vs_fp32_rel_l2=bf16_err,
+            best=bert_result["best"]["params"], wall_s=bert_wall, flash_launches=bert_launches,
+        ),
+        decoder=dict(
+            trials=[dict(component=r["component"], loss=r["loss"], step_ms=r["step_ms"],
+                         ratio_to_train_step=None if train_step_ms is None else r["step_ms"] / train_step_ms,
+                         lease=r["lease"],
+                         gated_grad_max=max([g for c in ABL_DECODER_COMPONENTS for n, g in r["grad_max"].items()
+                                             if decoder_gated(c, n) and (r["component"] in (None, c))],
+                                            default=None)) for r in dec_recs],
+            launches=launches, expected=expected, wall_s=dec_wall, train_step_ms=train_step_ms,
+        ),
+        memory_after_minus_before_gib=(after_bytes - base_bytes) / gib, peak_gib=peak,
+        phase_s=phase_s, budget_s=ABL_BUDGET_S,
+    )
+    if not ok:
+        raise SystemExit(f"lagom.ablation failed: {[k for k, v in checks.items() if not v]}")
+    return launches
+
+
 def _category(name: str) -> str:
     low = name.lower()
     # the three attention kernels, whether a flash or a ring wrapper launched them
@@ -2699,11 +2988,18 @@ def main(argv=None) -> int:
     phase_serve_cli(torch, card, fleet=(2, 1))
     # the HPO control plane on top: the `train` configuration as two trials
     phase_lagom_train(torch, DecoderConfig.llama3_8b(n_layers=N_LAYERS), S, LAGOM_STEPS, card, train_step_ms)
+    # the ablation experiment: BERT-base (BASELINE config 4) and the `train`
+    # Decoder as LOCO studies; the Decoder trials' flash launches join the
+    # kernels line
+    from maggy_tpu_torch.models import BertConfig
+
+    ablation_launches = phase_lagom_ablation(torch, BertConfig.base(), DecoderConfig.llama3_8b(n_layers=N_LAYERS), S,
+                                             ABL_DECODER_STEPS, card, train_step_ms)
     # the rest of the Trainer: checkpoints, the preemption save and resume
     # from sharded data, then the remat policies; their flash launches join
     # the `train` phase's in the kernels line
     cfg = DecoderConfig.llama3_8b(n_layers=N_LAYERS)
-    for more in (phase_train_resume(torch, cfg, S, card, train_peak, train_step_ms),
+    for more in (ablation_launches, phase_train_resume(torch, cfg, S, card, train_peak, train_step_ms),
                  phase_train_remat(torch, cfg, S, card)):
         for name, n in more.items():
             launches[name] += n

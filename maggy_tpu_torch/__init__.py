@@ -29,4 +29,6 @@ def __getattr__(name):
 
     if name == "experiment":
         return importlib.import_module("maggy_tpu_torch.experiment")
+    if name == "AblationStudy":
+        return importlib.import_module("maggy_tpu_torch.ablation").AblationStudy
     raise AttributeError(f"module 'maggy_tpu_torch' has no attribute {name!r}")

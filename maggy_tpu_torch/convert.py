@@ -1,4 +1,4 @@
-"""Weights of the JAX package's ``Decoder`` and ``MLP`` as PyTorch
+"""Weights of the JAX package's ``Decoder``, ``Bert`` and ``MLP`` as PyTorch
 ``state_dict``s, and its decode cache as the port's ``KVCache``.
 
 The JAX tree is taken as numpy arrays (``jax.device_get`` of the params, or
@@ -115,3 +115,42 @@ def mlp_params_from_flax(params_np: Dict[str, Any], features_count: int) -> Dict
         out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(_arr(tree[name]["kernel"]).T))
         out[f"{name}.bias"] = torch.from_numpy(np.array(_arr(tree[name]["bias"])))
     return out
+
+
+def bert_params_from_flax(params_np: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for ``maggy_tpu_torch.models.Bert(cfg)`` from the JAX
+    ``Bert``'s params: the full tree, or an ablated variant's as it stands
+    (``cfg.ablated`` names what it lacks). The q/k/v kernels are ``[d, H,
+    hd]``, ``wo`` is ``[H, hd, d]``, ``w_in``/``w_out``/``pooler`` are plain
+    ``[in, out]``; the classifier is a flax ``Dense`` with a bias."""
+    tree = params_np.get("params", params_np)
+    d, inner = cfg.d_model, cfg.n_heads * cfg.head_dim()
+
+    def norm(prefix, p):
+        return {prefix + "scale": _arr(p["scale"]), prefix + "bias": _arr(p["bias"])}
+
+    out = {"embedding": _arr(tree["embedding"])}
+    if "position_embeddings" not in cfg.ablated:
+        out["position_embedding"] = _arr(tree["position_embedding"])
+    for i in range(cfg.n_layers):
+        name = f"layer_{i}"
+        if name in cfg.ablated:
+            continue
+        p = _map(tree[name], _arr)
+        pre = f"layers.{name}."
+        out.update(norm(pre + "attn_norm.", p["attn_norm"]))
+        out.update(norm(pre + "mlp_norm.", p["mlp_norm"]))
+        for w in ("wq", "wk", "wv"):
+            out[pre + f"{w}.weight"] = p[w]["kernel"].reshape(d, inner).T
+        out[pre + "wo.weight"] = p["wo"]["kernel"].reshape(inner, d).T
+        out[pre + "w_in.weight"] = p["w_in"]["kernel"].T
+        out[pre + "w_out.weight"] = p["w_out"]["kernel"].T
+    out.update(norm("final_norm.", _map(tree["final_norm"], _arr)))
+    if "pooler" not in cfg.ablated:
+        out["pooler.weight"] = _arr(tree["pooler"]["kernel"]).T
+    out["classifier.weight"] = _arr(tree["classifier"]["kernel"]).T
+    out["classifier.bias"] = _arr(tree["classifier"]["bias"])
+    return {
+        k: torch.from_numpy(np.array(v)).to(cfg.param_dtype)
+        for k, v in out.items()
+    }

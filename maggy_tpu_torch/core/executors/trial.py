@@ -1,5 +1,5 @@
-"""Trial executor — the worker-side loop for HPO and single-run experiments;
-the port's copy of :mod:`maggy_tpu.core.executors.trial`.
+"""Trial executor — the worker-side loop for HPO, ablation and single-run
+experiments; the port's copy of :mod:`maggy_tpu.core.executors.trial`.
 
 Capability parity with the reference ``trial_executor_fn``
 (core/executors/trial_executor.py:35-213): register → heartbeat → loop
@@ -13,8 +13,11 @@ of CUDA cards (or the CPU), passed as the ``devices`` kwarg, a list of
 ``torch.device``; train_fn errors are reported to the driver as errored
 trials instead of killing a Spark task. Each executor is a thread and CUDA's
 current device is per host thread, so the thread makes the lease's first card
-current before its first trial: a train_fn that builds ``Trainer(...,
-device="cuda")`` then lands on its own card.
+current before its first trial, and again before an experiment kind's
+``resolve`` hook builds the trial's model: a train_fn that builds
+``Trainer(..., device="cuda")`` then lands on its own card. The hook and the
+kwarg injection run inside the trial's error handling, so a variant that
+cannot be built is that trial's error, not a dead worker.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ def trial_executor_fn(
     server_addr,
     secret: str,
     devices: Optional[List[torch.device]] = None,
+    resolve: Optional[Callable[[Dict[str, Any], Dict[str, Any]], Dict[str, Any]]] = None,
 ) -> Callable[[], None]:
     lease = list(devices or [])
     # one lease-wide TrainContext shared by every trial this worker runs,
@@ -66,11 +70,14 @@ def trial_executor_fn(
             _ctx_cache["ctx"] = TrainContext.local(spec, device=lease[0])
         return _ctx_cache["ctx"]
 
+    def _make_current() -> None:
+        if lease and lease[0].type == "cuda":
+            torch.cuda.set_device(lease[0])
+
     def _executor() -> None:
         from maggy_tpu_torch import telemetry
 
-        if lease and lease[0].type == "cuda":
-            torch.cuda.set_device(lease[0])
+        _make_current()
         env = EnvSing.get_instance()
         exp_dir = env.experiment_dir(app_id, run_id)
         log_file = os.path.join(exp_dir, f"executor_{partition_id}.log")
@@ -129,11 +136,6 @@ def trial_executor_fn(
             "trial_dir": trial_dir,
             "budget": params.get("budget"),
         }
-        if "ctx" in fn_params:
-            # built inside the try below, so that a preset the port lacks is
-            # this trial's error
-            available["ctx"] = None
-        kwargs = util.inject_kwargs(train_fn, available)
 
         from maggy_tpu_torch import telemetry
 
@@ -143,10 +145,17 @@ def trial_executor_fn(
         error: Optional[str] = None
         early = False
         try:
+            if resolve is not None:
+                # experiment-kind hook: ablation swaps in per-trial
+                # model/dataset, building the model on the lease's card
+                _make_current()
+                available = resolve(params, available)
+            if "ctx" in fn_params:
+                # a preset the port lacks raises here: this trial's error
+                available["ctx"] = _lease_ctx()
+            kwargs = util.inject_kwargs(train_fn, available)
             # train_fn prints ship to the driver with the heartbeat logs
             # (reference trial_executor.py:93-103)
-            if "ctx" in kwargs:
-                kwargs["ctx"] = _lease_ctx()
             with tel.span("trial", trial_id=trial_id), capture_prints(reporter):
                 retval = train_fn(**kwargs)
             metric = util.handle_return_val(

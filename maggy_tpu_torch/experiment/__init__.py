@@ -5,8 +5,8 @@ Parity with the reference's lagom dispatch (experiment/experiment.py:21-45,
 experiment_python.py:48-197): a single-experiment-at-a-time guard, app/run-id
 bookkeeping, and driver selection by singledispatch on the config type. Trials
 run in local executor threads, each on its lease of CUDA cards (or the CPU
-with ``device="cpu"``). Single runs and HPO are ported; ablation (ROADMAP
-queue 1 item 5b), distributed training and pod workers (item 7) raise.
+with ``device="cpu"``). Single runs, HPO and ablation are ported;
+distributed training and pod workers (ROADMAP queue 1 item 7) raise.
 
 "Lagom" (Swedish): not too little, not too much — the reference's name for
 running experiments with just the right amount of resources.
@@ -19,7 +19,7 @@ from functools import singledispatch
 from typing import Any, Callable, Optional
 
 from maggy_tpu_torch import util
-from maggy_tpu_torch.config import BaseConfig, HyperparameterOptConfig, LagomConfig
+from maggy_tpu_torch.config import AblationConfig, BaseConfig, HyperparameterOptConfig, LagomConfig
 
 APP_ID: Optional[str] = None
 RUN_ID: int = 0
@@ -35,7 +35,7 @@ def lagom(train_fn: Callable, config: LagomConfig) -> Any:
 
     :param train_fn: the oblivious training function.
     :param config: a LagomConfig subclass instance selecting the experiment kind.
-    :returns: experiment result — best/worst/avg dict for HPO, the train_fn
+    :returns: experiment result — best/worst/avg dict for HPO and ablation, the train_fn
         outputs for single runs, per-worker results for distributed training.
     """
     global APP_ID, RUN_ID, _running
@@ -86,7 +86,6 @@ def lagom(train_fn: Callable, config: LagomConfig) -> Any:
 # the JAX package's other config kinds, by class name (the port has no such
 # classes yet), and the ROADMAP item that ports each
 _NOT_PORTED = {
-    "AblationConfig": "ROADMAP queue 1 item 5b (ablation)",
     "DistributedConfig": "ROADMAP queue 1 item 7 (multi-device training)",
     "TpuDistributedConfig": "ROADMAP queue 1 item 7 (multi-device training)",
 }
@@ -99,7 +98,7 @@ def lagom_driver(config, app_id: str, run_id: int):
         raise NotImplementedError(f"{type(config).__name__} experiments are {item}, not ported yet")
     raise TypeError(
         f"Unsupported config type {type(config).__name__}; expected a "
-        "LagomConfig subclass (BaseConfig, HyperparameterOptConfig)."
+        "LagomConfig subclass (BaseConfig, HyperparameterOptConfig, AblationConfig)."
     )
 
 
@@ -115,6 +114,13 @@ def _(config: HyperparameterOptConfig, app_id: str, run_id: int):
     from maggy_tpu_torch.core.driver.hpo import HyperparameterOptDriver
 
     return HyperparameterOptDriver(config, app_id, run_id)
+
+
+@lagom_driver.register(AblationConfig)
+def _(config: AblationConfig, app_id: str, run_id: int):
+    from maggy_tpu_torch.core.driver.ablation import AblationDriver
+
+    return AblationDriver(config, app_id, run_id)
 
 
 def _maybe_run_as_pod_worker(train_fn: Callable, config) -> None:

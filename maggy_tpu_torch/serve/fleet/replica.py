@@ -455,17 +455,27 @@ class Replica:
         # the replica_slow chaos seam keys on this index so one replica can
         # be made gray (slow-but-alive) while its peers stay fast
         scheduler.replica_index = self.index
-        self.server = ServeServer(
+        server = ServeServer(
             scheduler,
             secret=self.secret,
             name=f"replica-{self.index}",
         )
-        self.addr = self.server.start(host=self.host, port=0)
-        self.client = InProcessClient(self.server)
+        addr = server.start(host=self.host, port=0)
+        client = InProcessClient(server)
         with self._lock:
-            self.state = UP
+            # a kill() or stop() from another thread while this stack was
+            # being built wins: the replica stays DEAD and the new stack goes
+            killed = self.state == DEAD
+            if not killed:
+                self.server, self.client, self.addr = server, client, addr
+                self.state = UP
+        if killed:
+            client.close()
+            server.stop()
+            server.scheduler = None
+            raise RuntimeError(f"replica {self.index} was killed while it started")
         self.started_ts = time.time()
-        return self.addr
+        return addr
 
     def alive(self) -> bool:
         with self._lock:

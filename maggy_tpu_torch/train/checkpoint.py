@@ -168,7 +168,7 @@ class Checkpointer:
             self._prune()
         except BaseException as e:  # noqa: BLE001 - raised by the next wait()
             shutil.rmtree(tmp, ignore_errors=True)
-            self._write_error = e
+            self._write_error = e  # race: ok — wait() reads it only after join()
 
     def _prune(self) -> None:
         for old in self.all_steps()[: -self.max_to_keep]:
@@ -180,7 +180,7 @@ class Checkpointer:
         writer, self._writer = self._writer, None
         if writer is not None:
             writer.join()
-        err, self._write_error = self._write_error, None
+        err, self._write_error = self._write_error, None  # race: ok — the writer has joined
         if err is not None:
             raise RuntimeError(f"checkpoint write under {self.directory} failed") from err
 

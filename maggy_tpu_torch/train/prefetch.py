@@ -177,6 +177,10 @@ class DevicePrefetcher:
     def __iter__(self) -> "DevicePrefetcher":
         return self
 
+    @property
+    def started(self) -> bool:
+        return self._thread is not None
+
     def _start(self) -> None:
         if self._thread is not None:
             return

@@ -348,16 +348,52 @@ class Trainer:
         return state.model(*_model_inputs(batch))
 
     @torch.no_grad()
-    def evaluate(self, state: TrainState, data_iter, num_batches: int) -> Dict[str, float]:
-        """Mean loss over ``num_batches`` held-out batches (no state update);
-        the losses add up on the device and are read once at the end."""
+    def evaluate(
+        self,
+        state: TrainState,
+        data_iter,
+        num_batches: int,
+        prefetch: Optional[int] = None,
+    ) -> Dict[str, float]:
+        """Mean loss over ``num_batches`` held-out batches (no state update).
+
+        As in the JAX trainer, the batches flow through a
+        :class:`~maggy_tpu_torch.train.prefetch.DevicePrefetcher`
+        (``prefetch`` batches ahead; ``MAGGY_TPU_PREFETCH`` sets the default,
+        0 disables) capped at ``num_batches``, so the iterator is never
+        over-consumed; the losses add up on the device and are read once at
+        the end."""
         if num_batches < 1:
             raise ValueError("evaluate needs num_batches >= 1")
+        from maggy_tpu_torch import telemetry
+        from maggy_tpu_torch.train.prefetch import DevicePrefetcher
+
+        depth = min(_prefetch_depth(prefetch), num_batches)
+        prefetcher = (
+            DevicePrefetcher(
+                data_iter,
+                self.shard_batch,
+                depth=depth,
+                max_items=num_batches,
+                telemetry_recorder=telemetry.get(),
+                device=self.device,
+            )
+            if depth > 0
+            else None
+        )
         total = None
-        for _ in range(num_batches):
-            batch = self._to_device(self.shard_batch(next(data_iter)))
-            loss = self._losses(state.model(*_model_inputs(batch)), batch)[1]
-            total = loss if total is None else total + loss
+        try:
+            for _ in range(num_batches):
+                if prefetcher is not None:
+                    batch = next(prefetcher)
+                else:
+                    batch = self.shard_batch(next(data_iter))
+                batch = self._to_device(batch)
+                loss = self._losses(state.model(*_model_inputs(batch)), batch)[1]
+                total = loss if total is None else total + loss
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
         return {"loss": float(total) / num_batches}
 
     def checkpoint_meta(self) -> Dict[str, Any]:

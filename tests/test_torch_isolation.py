@@ -46,6 +46,8 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
         "import maggy_tpu_torch.serve.loadgen, maggy_tpu_torch.serve.tier, maggy_tpu_torch.serve.__main__\n"
         "import maggy_tpu_torch.telemetry.alerts, maggy_tpu_torch.telemetry.profcap\n"
         "import maggy_tpu_torch.serve.fleet, maggy_tpu_torch.monitor, maggy_tpu_torch.telemetry.metrics\n"
+        "import maggy_tpu_torch.ablation, maggy_tpu_torch.ablation.ablator, maggy_tpu_torch.ablation.masking\n"
+        "import maggy_tpu_torch.core.driver.ablation, maggy_tpu_torch.config.ablation, maggy_tpu_torch.models.bert\n"
         "from maggy_tpu_torch.ops import _build\n"
         "from maggy_tpu_torch.train import native_loader\n"
         "print(sorted(sys.modules))\n"
@@ -62,6 +64,7 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
     assert "maggy_tpu_torch.train" in modules and "maggy_tpu_torch.serve.engine" in modules
     assert "maggy_tpu_torch.serve.__main__" in modules and "maggy_tpu_torch.serve.tier.host_pool" in modules
     assert "maggy_tpu_torch.serve.fleet.router" in modules and "maggy_tpu_torch.serve.fleet.autoscale" in modules
+    assert "maggy_tpu_torch.ablation.ablator.loco" in modules and "maggy_tpu_torch.models.bert" in modules
     assert out[1] == "0 False False"  # no kernel or batcher library loaded, no triton
 
 

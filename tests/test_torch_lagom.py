@@ -350,16 +350,37 @@ def test_device_groups():
     "make, match",
     [
         # the JAX package's config kinds the port lacks, refused by name
-        (lambda: JAblationConfig.__new__(JAblationConfig), "item 5b"),
         (lambda: JDistributedConfig.__new__(JDistributedConfig), "item 7"),
         (lambda: HyperparameterOptConfig(num_trials=1, optimizer="randomsearch", searchspace=_space(Searchspace),
                                          device="cpu", driver_addr="localhost:1"), "item 7"),
     ],
-    ids=["ablation", "distributed", "pod-driver-addr"],
+    ids=["distributed", "pod-driver-addr"],
 )
 def test_unported_experiment_kinds_raise(port_env, make, match):
     with pytest.raises(NotImplementedError, match=match):
         _lagom(lambda hparams: 1.0, make())
+
+
+def test_ablation_config_dispatches_to_ablation_driver(port_env):
+    """Ablation is ported: ``AblationConfig`` selects the ``AblationDriver``
+    (an HPO driver over a LOCO controller, no early stopping)."""
+    from maggy_tpu_torch.ablation import AblationStudy
+    from maggy_tpu_torch.config import AblationConfig
+    from maggy_tpu_torch.core.driver.ablation import AblationDriver, AblatorController
+    from maggy_tpu_torch.earlystop import NoStoppingRule
+
+    study = AblationStudy()
+    study.model.layers.include("mlp")
+    driver = experiment.lagom_driver(AblationConfig(study, device="cpu", hb_interval=HB), "app", 0)
+    try:
+        assert isinstance(driver, AblationDriver) and isinstance(driver.controller, AblatorController)
+        assert driver.num_trials == 2 and driver.earlystop is NoStoppingRule
+        assert driver.controller.name() == "LOCO"
+    finally:
+        driver.telemetry.close()
+    with pytest.raises(TypeError, match="Unsupported config type"):
+        # the JAX package's own config is no port config
+        experiment.lagom_driver(JAblationConfig.__new__(JAblationConfig), "app", 0)
 
 
 @pytest.mark.parametrize("var, value, match", [

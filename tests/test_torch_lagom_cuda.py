@@ -1,4 +1,6 @@
-"""The port's ``lagom()`` on CUDA cards: leases and each executor's current card.
+"""The port's ``lagom()`` on CUDA cards: leases, each executor's current card,
+and an ablation study whose gated components get exactly zero gradients
+through the CUDA dQ and dK/dV kernels.
 
 These need a CUDA card (the two-card cases need two): they skip elsewhere. On
 the card, run them without the JAX package's test configuration:
@@ -12,7 +14,8 @@ import pytest
 import torch
 
 from maggy_tpu_torch import Searchspace, experiment
-from maggy_tpu_torch.config import HyperparameterOptConfig
+from maggy_tpu_torch.ablation import AblationStudy
+from maggy_tpu_torch.config import AblationConfig, HyperparameterOptConfig
 from maggy_tpu_torch.core.driver.base import device_groups
 from maggy_tpu_torch.models import Decoder, DecoderConfig
 from maggy_tpu_torch.ops import flash
@@ -121,3 +124,36 @@ def test_a_trial_trains_the_decoder_through_the_kernels(cards, port_env):
         "flash_bwd_dq": CFG.n_layers * steps,
         "flash_bwd_dkv": CFG.n_layers * steps,
     }
+
+
+def test_ablation_gates_zero_gradients_through_the_kernels(cards, port_env):
+    """LOCO over ``mlp`` and ``layers.1`` of a meta Decoder, no factory: each
+    trial gets a fresh variant, trains it on its lease through the flash
+    kernels (launched as often as without gates), and the gated
+    components' gradients come back exactly zero; the baseline's do not."""
+    grads, steps = {}, 2
+
+    def train(model, reporter, devices, ablated_component):
+        assert all(p.is_meta for p in model.parameters())
+        trainer = Trainer(model, adamw(1e-3), device=devices[0])
+        data = synthetic_lm_batches(CFG.vocab_size, 2, 128, seed=0)
+        state = trainer.make_state(0, next(data))
+        _, metrics = trainer.fit(state, data, steps, reporter=reporter, report_every=1, metrics_window=0)
+        grads[ablated_component] = {n: float(p.grad.abs().max()) for n, p in state.model.named_parameters()}
+        return metrics["loss"]
+
+    study = AblationStudy()
+    study.model.layers.include("mlp", "layers.1")
+    flash.reset_launches()
+    result = _lagom(train, AblationConfig(study, model=Decoder(CFG, device="meta"), direction="min",
+                                          hb_interval=0.05))
+    assert result["num_trials"] == 3 and result["errors"] == 0
+    assert dict(flash.LAUNCHES) == {
+        "flash_fwd": 3 * 2 * CFG.n_layers * steps,
+        "flash_bwd_dq": 3 * CFG.n_layers * steps,
+        "flash_bwd_dkv": 3 * CFG.n_layers * steps,
+    }
+    gated = {"mlp": lambda n: ".mlp" in n, "layers.1": lambda n: n.startswith("layers.1.")}
+    for comp, hit in gated.items():
+        assert [n for n, g in grads[comp].items() if hit(n) and g != 0.0] == []
+        assert all(grads[None][n] > 0.0 for n in grads[comp] if hit(n))

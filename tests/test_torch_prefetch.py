@@ -224,3 +224,60 @@ def test_fit_leaves_no_prefetch_thread():
     for t in alive:
         t.join(timeout=10)
     assert not any(t.is_alive() for t in alive)
+
+
+class _CountingScalar:
+    """A loss that counts the host reads (``float``) of what it adds up to."""
+
+    def __init__(self, value, counter):
+        self.value, self.counter = value, counter
+
+    def __add__(self, other):
+        return _CountingScalar(self.value + other.value, self.counter)
+
+    def __float__(self):
+        self.counter["n"] += 1
+        return float(self.value)
+
+
+@pytest.mark.parametrize("prefetch", [None, 0, 2, 10])
+def test_evaluate_reads_once_and_takes_exactly_num_batches(prefetch):
+    """JAX's ``test_evaluate_accumulates_on_device_single_conversion``: the
+    losses add up on the device and are read once; and the iterator gives
+    exactly ``num_batches`` batches, whatever the prefetch depth."""
+    from maggy_tpu_torch.models import Decoder, DecoderConfig
+    from maggy_tpu_torch.train import Trainer, adamw, synthetic_lm_batches
+
+    cfg = DecoderConfig.tiny()
+    trainer = Trainer(Decoder(cfg, device="meta"), adamw(1e-3), device="cpu")
+    source = synthetic_lm_batches(cfg.vocab_size, 2, 16, seed=0)
+    state = trainer.make_state(0, next(source))
+    pulled = {"n": 0}
+
+    def counted():
+        for batch in source:
+            pulled["n"] += 1
+            yield batch
+
+    data = counted()
+    want = trainer.evaluate(state, data, 5, prefetch=prefetch)
+    assert pulled["n"] == 5 and np.isfinite(want["loss"])
+    reads = {"n": 0}
+    real = trainer._losses
+    trainer._losses = lambda logits, batch: tuple(_CountingScalar(x, reads) for x in real(logits, batch))
+    try:
+        got = trainer.evaluate(state, data, 5, prefetch=prefetch)
+    finally:
+        trainer._losses = real
+    assert reads["n"] == 1 and pulled["n"] == 10 and np.isfinite(got["loss"])
+    alive = [t for t in threading.enumerate() if t.name == "maggy-device-prefetch"]
+    for t in alive:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in alive)
+
+
+def test_prefetcher_started_is_lazy():
+    pf = DevicePrefetcher(iter(range(3)), put=lambda x: x, depth=2)
+    assert not pf.started
+    assert next(pf) == 0 and pf.started
+    pf.close()

@@ -5,8 +5,9 @@ The JAX ``Decoder`` is initialised from a key, its params go through
 (numpy) go through both. The geometry is the one ``__graft_entry__.entry()``
 builds: vocab 2048, d 256, 4 layers, 8 heads, 4 KV heads, d_ff 704, S 128.
 
-Tolerances. fp32: 1e-5 absolute plus 1e-4 relative (tied-embedding logits
-reach ~16) on logits of magnitude ~1.6 — the same
+Tolerances. fp32: 1e-5 absolute plus 1e-4 relative on logits of magnitude
+~1.6; the tied-embedding logits (rms ~17) get 1e-5 times their rms as the
+absolute part, their rounding being that much larger — the same
 math with sums taken in another order (the port's CPU attention is the flash
 kernels' plain version, the JAX side's is ``default_attention``); measured
 6e-7. bf16: relative L2 of 1e-2 — both frameworks round activations to bf16
@@ -89,7 +90,14 @@ def test_decoder_logits_match_fp32(variant):
     with torch.no_grad():
         out = model(torch.from_numpy(tokens), *extra_t)
     assert out.dtype == torch.float32 and out.shape == (B, S, ENTRY["vocab_size"])
-    np.testing.assert_allclose(out.numpy(), ref, atol=FP32_ATOL, rtol=1e-4)
+    atol = FP32_ATOL
+    if variant == "tied":
+        # the tied head dots the final norm with the N(0, 1) embedding: its
+        # logits (rms ~17, up to ~300) are 256-term fp32 sums whose rounding
+        # grows with their size, so a logit near 0 that cancels such terms
+        # misses by up to ~2e-5 in either framework (each against float64)
+        atol = FP32_ATOL * float(np.sqrt(np.mean(np.square(ref))))
+    np.testing.assert_allclose(out.numpy(), ref, atol=atol, rtol=1e-4)
 
 
 def test_decoder_without_matches_ablated_config():

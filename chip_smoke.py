@@ -155,7 +155,30 @@ Phases, each printing one line:
             kernels and the baseline's not, each trial's step within 1.25 x
             ``train``'s. After both: no executor thread left and the card's
             memory back within 1 GiB. Steps/s, peaks, times; budget 120 s.
-13. train.resume  the ``train`` configuration from disk: seeded tokens
+13. dist.lagom  the ``train`` configuration as the train_fn of the port's
+            ``lagom(train_fn, DistributedConfig(sharding="fsdp",
+            num_executors=1))``: one spawned process, an NCCL rank on card
+            0, FSDP2 over a one-rank mesh. Its warm-up step and 6 fit steps
+            from the ``train`` phase's weights and batches: every loss within
+            1e-5 and the first and last grad norms within 1e-4 of ``train``'s
+            (relative), the trainer's grad norm within 1e-5 of the one
+            from every gradient gathered whole, the flash kernels launched
+            8 / 4 / 4 a step as in ``train``, every parameter on the card,
+            the card's free memory
+            back within 1 GiB after the study, the phase inside 90 s (the
+            rank is killed past it). Its step time beside ``train``'s.
+14. dist.mesh  the flash kernels at the tensor-parallel head counts (tp=2:
+            16 and 4 heads, tp=4: 8 and 2) against their plain versions,
+            timed beside their bounds, SDPA and the plain versions, on any
+            number of cards. With two or more cards, one process per card
+            over NCCL under dp=2, fsdp=2 and tp=2 (and fsdp=2 x tp=2 on
+            four), each the same steps from the same weights: every rank's
+            losses within 5e-4 and grad norms within 2e-3 of dist.lagom's
+            single rank, the warm-up step's norm of each gradient group
+            (each gradient gathered whole) within 2e-2 of its, and the
+            trainer's grad norm within 1e-5 of the groups', the launches as there; budget 150 s. With one card
+            it reports ``"ran": false`` beside the kernel times.
+15. train.resume  the ``train`` configuration from disk: seeded tokens
             written by ``write_sharded`` into a temporary directory, read
             through ``ShardedDataset`` and the native batcher (it must be
             native) into ``fit``'s prefetcher (depth 2). Run A takes 8
@@ -172,7 +195,7 @@ Phases, each printing one line:
             checkpoints. It prints the bytes a checkpoint, each save's
             blocked and commit time, the restore time, the step through
             the prefetcher and ``input_wait_ms``.
-14. train.remat  one forward and backward of the ``train`` configuration on
+16. train.remat  one forward and backward of the ``train`` configuration on
             one batch under ``remat=False``, ``"nothing"``, ``"dots"`` and
             ``"dots_attn"``, from the same parameters, gradients cleared
             between them: the loss and every gradient equal to
@@ -180,8 +203,9 @@ Phases, each printing one line:
             4 and backward 4 + 4 under each; each policy's time and peak.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches: those of
-``train``, ``ring.train``, ``lagom.ablation``'s Decoder study, ``train.resume``
-and ``train.remat``), the card's name and power limit, and as
+``train``, ``ring.train``, ``lagom.ablation``'s Decoder study,
+``dist.lagom``'s rank, ``dist.mesh``'s rank 0, ``train.resume`` and
+``train.remat``), the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before that line. With no CUDA it exits non-zero at once.
 """
@@ -294,6 +318,45 @@ TOL_BERT_BF16_REL_L2 = 5e-2
 ABL_STEP_FACTOR = 1.25
 # the card's allocated memory after both studies against before the phase
 ABL_MEMORY_MARGIN_GIB = 1.0
+# dist.lagom: the `train` configuration as the train_fn of
+# lagom(train_fn, DistributedConfig(sharding="fsdp", num_executors=1)): one
+# spawned NCCL rank, FSDP2 on a one-rank mesh. Its warm-up step and
+# TRAIN_STEPS fit steps run on the `train` phase's weights and batches, in
+# the same order, so each loss and grad norm stands beside `train`'s. On one
+# rank FSDP2's gather and reduction are copies and the step computes what
+# the dense step computes; what differs is the order of the grad norm's sum
+# (a sum of shard squares, then one all-reduce): the loss is held to 1e-5 and
+# the grad norm to 1e-4 relative. The rank is killed, and the phase fails,
+# past DIST_LAGOM_BUDGET_S
+TOL_DIST_LAGOM_LOSS_REL = 1e-5
+TOL_DIST_LAGOM_GRAD_NORM_REL = 1e-4
+DIST_LAGOM_BUDGET_S = 90
+DIST_MEMORY_MARGIN_GIB = 1.0
+# dist.mesh: with two or more cards, one process per card under dp=2,
+# fsdp=2 and tp=2 (and the "2d" preset on four cards), each the same steps
+# from the same weights, every rank held to dist.lagom's single rank. The
+# batch rows (dp, fsdp) or the heads (tp) are split over the cards, so bf16
+# products sum in another order (a GEMM over one row instead of two, tp's
+# partial sums of wo and w_down added over the cards). Four H100s read at
+# most 3.7e-5 (loss) and 1.2e-4 (grad norm) relative over the 7 steps; the
+# limits sit about 13 x and 16 x above, and tools/mesh_fault_check.py
+# reads what planted mesh faults do against them. Budget
+# DIST_MESH_BUDGET_S for the phase; it also times the flash kernels at the
+# tp-local head counts (tp=2: 16 and 4 heads, tp=4: 8 and 2), on one card too
+TOL_MESH_LOSS_REL = 5e-4
+TOL_MESH_GRAD_NORM_REL = 2e-3
+# A fault on a small leaf hides under those: the norm scales' gradients
+# are too small a share of the norm and of the loss's 7 steps (four
+# H100s: one rank's norm-scale gradients zeroed, or a replicated gradient
+# counted twice in the norm, read at most 1.5e-4 and 3.7e-4 under tp). So
+# each rank also takes, at the warm-up step, the norm of each gradient
+# group (norm scales, embedding, attention, MLP, lm_head), every gradient
+# gathered whole: each within TOL_MESH_GROUP_NORM_REL of the one rank's,
+# and the trainer's sharded grad norm within TOL_GRAD_NORM_COUNT_REL of
+# the groups' (the same fp32 squares summed in another order)
+TOL_MESH_GROUP_NORM_REL = 2e-2
+TOL_GRAD_NORM_COUNT_REL = 1e-5
+DIST_MESH_BUDGET_S = 150
 # train.resume: the `train` configuration from ROWS rows of tokens written as
 # SHARDS shards; run A takes STEPS steps, run B checkpoints every EVERY steps
 # until a preemption notice after step NOTICE, run C resumes it. A checkpoint
@@ -625,7 +688,10 @@ def flash_launches_per_step(n_layers: int) -> dict:
     }
 
 
-def phase_train(torch, n_layers: int, seq: int, steps: int, card: str, profile: bool):
+def phase_train(torch, n_layers: int, seq: int, steps: int, card: str, profile: bool, reference=None):
+    """Phase 4. With a ``reference`` dict, fills it with the dense steps
+    dist.lagom is held to: the warm-up step's loss and grad norm, then the
+    timed fit's losses and its last grad norm."""
     from maggy_tpu_torch import telemetry
     from maggy_tpu_torch.models import Decoder, DecoderConfig
     from maggy_tpu_torch.ops import flash
@@ -648,7 +714,7 @@ def phase_train(torch, n_layers: int, seq: int, steps: int, card: str, profile: 
     # its wait for that first batch is reported beside the steps
     warm = telemetry.Telemetry(worker="train.warmup")
     with telemetry.current(warm):
-        state, _ = trainer.fit(state, data, 1)
+        state, warm_metrics = trainer.fit(state, data, 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash.reset_launches()
@@ -691,6 +757,9 @@ def phase_train(torch, n_layers: int, seq: int, steps: int, card: str, profile: 
     )
     if not ok:
         raise SystemExit(f"train phase failed: losses {losses}, launches {launches} != {expected}")
+    if reference is not None:
+        reference.update(losses=[warm_metrics["loss"]] + [v for _, v in losses],
+                         first_grad_norm=warm_metrics["grad_norm"], last_grad_norm=metrics["grad_norm"])
     if profile:
         profile_steps(torch, trainer, state, data, card, step_ms)
     return launches, step_ms, peak
@@ -2856,6 +2925,315 @@ def phase_lagom_ablation(torch, bert_cfg, dec_cfg, seq: int, steps: int, card: s
     return launches
 
 
+def grad_norms_by_group(model) -> dict:
+    """The L2 norm of each group of the model's gradients (the norm scales,
+    the embedding, attention, the MLP, ``lm_head``), every gradient
+    gathered whole (``full_tensor``) on every rank and summed there: a
+    count of its own, apart from the trainer's sharded norm. Every rank
+    must call it."""
+    sums = {}
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        g = p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad
+        group = "norm" if name.endswith("scale") else next(k for k in ("embedding", "attn", "mlp", "lm_head")
+                                                            if k in name)
+        sums[group] = sums.get(group, 0.0) + float(g.float().square().sum())
+        del g
+    return {k: math.sqrt(v) for k, v in sums.items()}
+
+
+def mesh_steps(ctx, model, steps: int, seq: int, reporter=None) -> dict:
+    """The ``train`` phase's steps on a rank of ``ctx``'s mesh: its weights
+    (seed 0) and batches, a one-step warm-up fit, then ``steps`` fit steps
+    (prefetch 2, every loss broadcast). Each rank passes the global batch;
+    fit takes its rows. Returns the losses, the grad norms, the warm-up
+    step's norm of each gradient group (:func:`grad_norms_by_group`) and
+    how far the trainer's grad norm lies from theirs, the mean step, the
+    peak memory and the flash launches of both fits."""
+    import torch
+
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.train import adamw, synthetic_lm_batches
+
+    trainer = ctx.trainer(model, adamw(1e-4))
+    data = synthetic_lm_batches(model.cfg.vocab_size, B, seq, seed=0)
+    state = trainer.make_state(0, next(data))
+    flash.reset_launches()
+    state, warm = trainer.fit(state, data, 1)
+    groups = grad_norms_by_group(state.model)  # the warm-up step's gradients, still held
+    whole = math.sqrt(sum(v * v for v in groups.values()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+
+    class Record:
+        def broadcast(self, value, step):
+            losses.append(value)
+            if reporter is not None:
+                reporter.broadcast(value, step=step)
+
+    state, metrics = trainer.fit(state, data, steps, reporter=Record(), report_every=1, metrics_window=0)
+    torch.cuda.synchronize()
+    on_card = all(getattr(p, "to_local", lambda: p)().device == ctx.device for p in state.model.parameters())
+    return dict(metric=metrics["loss"], losses=[warm["loss"]] + losses, first_grad_norm=warm["grad_norm"],
+                params_on_card=on_card, group_grad_norms=groups,
+                grad_norm_count_rel=_rel(warm["grad_norm"], whole),
+                last_grad_norm=metrics["grad_norm"], step_ms=1e3 / metrics["steps_per_sec"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=dict(flash.LAUNCHES),
+                device=str(ctx.device), mesh={k: v for k, v in zip(ctx.mesh.mesh_dim_names, ctx.mesh.mesh.shape)
+                                              if v > 1})
+
+
+def dist_lagom_train(model, hparams, reporter, ctx):
+    """dist.lagom's train_fn, run by each rank of the study: the ``train``
+    phase's steps under the rank's mesh."""
+    return mesh_steps(ctx, model, hparams["steps"], hparams["seq"], reporter)
+
+
+def _rel(got, want) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def phase_dist_lagom(torch, cfg, seq: int, steps: int, card: str, train_ref: dict, train_step_ms):
+    """``lagom(train_fn, DistributedConfig(sharding="fsdp", num_executors=1))``:
+    one spawned rank on card 0, FSDP2 on a one-rank mesh, the ``train``
+    phase's steps, held to them. Returns the rank's result."""
+    import gc
+    import tempfile
+    from pathlib import Path
+
+    from maggy_tpu_torch import experiment
+    from maggy_tpu_torch.config import DistributedConfig
+    from maggy_tpu_torch.core import env as env_mod
+    from maggy_tpu_torch.core.env.base import BaseEnv
+    from maggy_tpu_torch.models import Decoder
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info(0)[0]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dist_lagom_") as root:
+        env_mod.set_instance(BaseEnv(root))  # logs in a temporary root, never the repo
+        try:
+            result = experiment.lagom(dist_lagom_train, DistributedConfig(
+                module=Decoder(cfg, device="meta"), hparams=dict(steps=steps, seq=seq), sharding="fsdp",
+                num_executors=1, hb_interval=LAGOM_HB, worker_timeout=DIST_LAGOM_BUDGET_S,
+            ))
+            rank = json.loads(next(Path(root).rglob("worker_0/.outputs.json")).read_text())
+        finally:
+            env_mod.set_instance(None)
+    phase_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    free_after = torch.cuda.mem_get_info(0)[0]
+    expected = {k: (1 + steps) * v for k, v in flash_launches_per_step(cfg.n_layers).items()}
+    want = train_ref["losses"][: steps + 1]
+    loss_rel = [_rel(g, w) for g, w in zip(rank["losses"], want)]
+    norm_rel = dict(first=_rel(rank["first_grad_norm"], train_ref["first_grad_norm"]),
+                    last=_rel(rank["last_grad_norm"], train_ref["last_grad_norm"]))
+    checks = {
+        "one_worker": result["num_workers"] == 1 and rank["device"] == "cuda:0" and rank["params_on_card"],
+        "losses_finite": all(math.isfinite(v) for v in rank["losses"]),
+        "losses_match_train": len(loss_rel) == steps + 1 and max(loss_rel) <= TOL_DIST_LAGOM_LOSS_REL,
+        "grad_norms_match_train": max(norm_rel.values()) <= TOL_DIST_LAGOM_GRAD_NORM_REL,
+        "grad_norm_counts_every_gradient": rank["grad_norm_count_rel"] <= TOL_GRAD_NORM_COUNT_REL,
+        "launches": rank["launches"] == expected,
+        "memory_back": free_after >= free_before - DIST_MEMORY_MARGIN_GIB * 2**30,
+        "within_budget": phase_s <= DIST_LAGOM_BUDGET_S,
+    }
+    ok = all(checks.values())
+    emit(
+        "dist.lagom", ok=ok, checks=checks, losses=rank["losses"], train_losses=want, loss_rel=loss_rel,
+        grad_norms=dict(first=rank["first_grad_norm"], last=rank["last_grad_norm"]), grad_norm_rel=norm_rel,
+        group_grad_norms=rank["group_grad_norms"], grad_norm_count_rel=rank["grad_norm_count_rel"],
+        tol=dict(loss_rel=TOL_DIST_LAGOM_LOSS_REL, grad_norm_rel=TOL_DIST_LAGOM_GRAD_NORM_REL,
+                 grad_norm_count_rel=TOL_GRAD_NORM_COUNT_REL),
+        step_ms=rank["step_ms"], train_step_ms=train_step_ms,
+        ratio_to_train_step=None if train_step_ms is None else rank["step_ms"] / train_step_ms,
+        peak_gib=rank["peak_gib"], launches=rank["launches"], expected=expected, mesh=rank["mesh"],
+        free_gib_before=free_before / 2**30, free_gib_after=free_after / 2**30,
+        phase_s=phase_s, budget_s=DIST_LAGOM_BUDGET_S, card=card,
+    )
+    if not ok:
+        raise SystemExit(f"dist.lagom failed: {[k for k, v in checks.items() if not v]}")
+    return rank
+
+
+def tp_local_kernels(torch, tp: int) -> dict:
+    """The flash kernels at a tensor-parallel rank's head counts (Llama-3-8B's
+    32 query and 8 KV heads over ``tp``) on the ``train`` shapes: each
+    against its plain version (the ``kernels`` tolerances), its time beside
+    its bound, the plain version's and SDPA's."""
+    from maggy_tpu_torch.ops import flash
+
+    h, kh = H // tp, KH // tp
+    gen = torch.Generator(device="cuda").manual_seed(tp)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = rand(B, S, h, D), rand(B, S, kh, D), rand(B, S, kh, D), rand(B, S, h, D)
+    f32 = [t.float() for t in (q, k, v)]
+    o, lse = flash.flash_fwd(q, k, v)
+    o_ref, lse_ref = flash.flash_fwd_reference(*f32)
+    bwd_in, bwd_ref_in = (q, k, v, o, do, lse), (*f32, o.float(), do.float(), lse)
+    dq = flash.flash_bwd_dq(*bwd_in)
+    dk, dv = flash.flash_bwd_dkv(*bwd_in)
+    dq_ref = flash.flash_dq_reference(*bwd_ref_in)
+    dk_ref, dv_ref = flash.flash_dkv_reference(*bwd_ref_in)
+    torch.cuda.synchronize()
+    err = dict(o_max_abs=float((o.float() - o_ref).abs().max()), o_rel_l2=rel_l2(o, o_ref),
+               lse_max_abs=float((lse - lse_ref).abs().max()), dq_rel_l2=rel_l2(dq, dq_ref),
+               dk_rel_l2=rel_l2(dk, dk_ref), dv_rel_l2=rel_l2(dv, dv_ref),
+               dq_max_abs=float((dq.float() - dq_ref).abs().max()),
+               dkv_max_abs=max(float((dk.float() - dk_ref).abs().max()), float((dv.float() - dv_ref).abs().max())))
+    ok = (err["o_max_abs"] <= TOL_O_ABS and err["o_rel_l2"] <= TOL_O_REL_L2 and err["lse_max_abs"] <= TOL_LSE_ABS
+          and all(err[f"{n}_rel_l2"] <= TOL_GRAD_REL_L2 for n in ("dq", "dk", "dv")))
+    del dq_ref, dk_ref, dv_ref, o_ref, lse_ref
+    ms = {"flash_fwd": time_ms(torch, lambda: flash.flash_fwd(q, k, v)),
+          "flash_bwd_dq": time_ms(torch, lambda: flash.flash_bwd_dq(*bwd_in)),
+          "flash_bwd_dkv": time_ms(torch, lambda: flash.flash_bwd_dkv(*bwd_in))}
+    plain_ms = {"flash_fwd": time_ms(torch, lambda: flash.flash_fwd_reference(*f32)),
+                "flash_bwd_dq": time_ms(torch, lambda: flash.flash_dq_reference(*bwd_ref_in)),
+                "flash_bwd_dkv": time_ms(torch, lambda: flash.flash_dkv_reference(*bwd_ref_in))}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_fwd_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (qt, kt, vt))
+    sdpa_bwd_ms = time_sdpa_bwd(torch, qg, kg, vg, do.transpose(1, 2), is_causal=True)
+    pairs = B * S * (S + 1) // 2
+    q_bytes, kv_bytes, lse_bytes = B * S * h * D * 2, B * S * kh * D * 2, B * h * S * 4
+    work = {"flash_fwd": (4 * D * pairs * h, q_bytes + 2 * kv_bytes + q_bytes + lse_bytes),
+            "flash_bwd_dq": (6 * D * pairs * h, 3 * q_bytes + 2 * kv_bytes + lse_bytes + q_bytes),
+            "flash_bwd_dkv": (8 * D * pairs * h, 3 * q_bytes + 2 * kv_bytes + lse_bytes + 2 * kv_bytes)}
+    max_err = {"flash_fwd": err["o_max_abs"], "flash_bwd_dq": err["dq_max_abs"], "flash_bwd_dkv": err["dkv_max_abs"]}
+    rows = {name: kernel_row(name, ms[name], plain_ms[name], work[name], max_err[name],
+                             sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd_ms) for name in ms}
+    for row in rows.values():
+        row.pop("ptxas")
+    torch.cuda.empty_cache()
+    return dict(ok=ok, heads=h, kv_heads=kh, err=err, rows=rows)
+
+
+def _mesh_rank(rank: int, n: int, port: int, specs, n_layers: int, seq: int, steps: int, out) -> None:
+    """One rank of ``dist.mesh``: its own card, NCCL, then each spec's
+    steps in turn. Puts (rank, results) or (rank, "error", traceback)."""
+    import gc
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        os.environ["LOCAL_RANK"] = str(rank)
+        torch.cuda.set_device(rank)
+        sys.path.insert(0, REPO)
+        from maggy_tpu_torch.models import Decoder, DecoderConfig
+        from maggy_tpu_torch.parallel import ShardingSpec
+        from maggy_tpu_torch.train import TrainContext
+
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=rank, world_size=n,
+                                device_id=torch.device("cuda", rank))
+        results = {}
+        for key, kw in specs:
+            ctx = TrainContext.create(ShardingSpec(**kw))
+            model = Decoder(DecoderConfig.llama3_8b(n_layers=n_layers), device="meta")
+            results[key] = mesh_steps(ctx, model, steps, seq)
+            del ctx, model
+            gc.collect()
+            torch.cuda.empty_cache()
+        out.put((rank, results))
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_dist_mesh(torch, n_layers: int, seq: int, steps: int, card: str, single: dict) -> dict:
+    """The mesh across cards, each rank against dist.lagom's single rank;
+    and, on any number of cards, the flash kernels at the tp-local head
+    counts. Returns rank 0's flash launches, summed over the specs."""
+    import multiprocessing
+    import socket
+
+    t0 = time.perf_counter()
+    tp_local = {f"tp{tp}": tp_local_kernels(torch, tp) for tp in (2, 4)}
+    kernels_ok = all(r["ok"] for r in tp_local.values())
+    cards = torch.cuda.device_count()
+    common = dict(tp_local_kernels=tp_local, card=card)
+    if not kernels_ok:
+        emit("dist.mesh", ok=False, ran=False, cards=cards, **common)
+        raise SystemExit("dist.mesh failed: a flash kernel at tp-local heads disagrees with its plain version")
+    if cards < 2:
+        emit("dist.mesh", ok=True, ran=False, cards=cards, **common)
+        return {}
+    groups = [(2, [("dp2", dict(dp=2)), ("fsdp2", dict(fsdp=2)), ("tp2", dict(tp=2))])]
+    if cards >= 4:
+        groups.append((4, [("2d", dict(fsdp=2, tp=2))]))  # ShardingSpec.preset("2d", 4)
+    mp = multiprocessing.get_context("spawn")
+    ranks, launches = [], {}
+    for n, specs in groups:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        out = mp.Queue()
+        procs = [mp.Process(target=_mesh_rank, args=(r, n, port, specs, n_layers, seq, steps, out))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        try:
+            left = max(1.0, DIST_MESH_BUDGET_S - (time.perf_counter() - t0))
+            results = sorted((out.get(timeout=left) for _ in range(n)), key=lambda r: r[0])
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        failed = [r for r in results if r[1] == "error"]
+        if failed:
+            raise SystemExit(f"dist.mesh: rank {failed[0][0]} failed:\n{failed[0][2]}")
+        for rank, per_spec in results:
+            for key, res in per_spec.items():
+                ranks.append(dict(spec=key, rank=rank, res=res))
+                if rank == 0:
+                    for name, count in res["launches"].items():
+                        launches[name] = launches.get(name, 0) + count
+    expected = {k: (1 + steps) * v for k, v in flash_launches_per_step(n_layers).items()}
+    rows = []
+    for r in ranks:
+        res = r["res"]
+        loss_rel = max(_rel(g, w) for g, w in zip(res["losses"], single["losses"]))
+        norm_rel = max(_rel(res["first_grad_norm"], single["first_grad_norm"]),
+                       _rel(res["last_grad_norm"], single["last_grad_norm"]))
+        group_rel = {k: _rel(v, single["group_grad_norms"][k]) for k, v in res["group_grad_norms"].items()}
+        rows.append(dict(spec=r["spec"], rank=r["rank"], mesh=res["mesh"], losses=res["losses"],
+                         loss_rel=loss_rel, grad_norm_rel=norm_rel, group_grad_norm_rel=group_rel,
+                         grad_norm_count_rel=res["grad_norm_count_rel"], step_ms=res["step_ms"],
+                         ratio_to_single=res["step_ms"] / single["step_ms"], peak_gib=res["peak_gib"],
+                         launches_ok=res["launches"] == expected,
+                         ok=loss_rel <= TOL_MESH_LOSS_REL and norm_rel <= TOL_MESH_GRAD_NORM_REL
+                         and set(group_rel) == set(single["group_grad_norms"])
+                         and max(group_rel.values()) <= TOL_MESH_GROUP_NORM_REL
+                         and res["grad_norm_count_rel"] <= TOL_GRAD_NORM_COUNT_REL
+                         and res["launches"] == expected and len(res["losses"]) == steps + 1
+                         and res["params_on_card"]))
+    phase_s = time.perf_counter() - t0
+    ok = all(r["ok"] for r in rows) and phase_s <= DIST_MESH_BUDGET_S
+    emit("dist.mesh", ok=ok, ran=True, cards=cards, ranks=rows, expected_launches=expected,
+         tol=dict(loss_rel=TOL_MESH_LOSS_REL, grad_norm_rel=TOL_MESH_GRAD_NORM_REL,
+                  group_grad_norm_rel=TOL_MESH_GROUP_NORM_REL, grad_norm_count_rel=TOL_GRAD_NORM_COUNT_REL),
+         phase_s=phase_s, budget_s=DIST_MESH_BUDGET_S, **common)
+    if not ok:
+        raise SystemExit("dist.mesh failed: a rank's losses, grad norms (whole, by group, or as its trainer "
+                         "counts them) or launches disagree with dist.lagom's single rank, or the phase ran past "
+                         "its budget")
+    return launches
+
+
 def _category(name: str) -> str:
     low = name.lower()
     # the three attention kernels, whether a flash or a ring wrapper launched them
@@ -2946,7 +3324,9 @@ def main(argv=None) -> int:
 
     rows = phase_kernels(torch)
     phase_model(torch, N_LAYERS, S)
-    launches, train_step_ms, train_peak = phase_train(torch, N_LAYERS, S, TRAIN_STEPS, card, args.profile)
+    train_ref = {}
+    launches, train_step_ms, train_peak = phase_train(torch, N_LAYERS, S, TRAIN_STEPS, card, args.profile,
+                                                      train_ref)
     rows.update(phase_ring_kernels(torch))
     phase_ring_model(torch, N_LAYERS, RING_S)
     ring_launches = phase_ring_train(torch, N_LAYERS, RING_S, TRAIN_STEPS, card, args.profile)
@@ -2995,11 +3375,18 @@ def main(argv=None) -> int:
 
     ablation_launches = phase_lagom_ablation(torch, BertConfig.base(), DecoderConfig.llama3_8b(n_layers=N_LAYERS), S,
                                              ABL_DECODER_STEPS, card, train_step_ms)
+    # multi-device training: the `train` configuration as one NCCL rank
+    # through FSDP2 under lagom(DistributedConfig), then the mesh across cards
+    # (dp, fsdp, tp; 2d on four) held to it; their flash launches join the
+    # kernels line
+    cfg = DecoderConfig.llama3_8b(n_layers=N_LAYERS)
+    single = phase_dist_lagom(torch, cfg, S, TRAIN_STEPS, card, train_ref, train_step_ms)
+    mesh_launches = phase_dist_mesh(torch, N_LAYERS, S, TRAIN_STEPS, card, single)
     # the rest of the Trainer: checkpoints, the preemption save and resume
     # from sharded data, then the remat policies; their flash launches join
     # the `train` phase's in the kernels line
-    cfg = DecoderConfig.llama3_8b(n_layers=N_LAYERS)
-    for more in (ablation_launches, phase_train_resume(torch, cfg, S, card, train_peak, train_step_ms),
+    for more in (ablation_launches, single["launches"], mesh_launches,
+                 phase_train_resume(torch, cfg, S, card, train_peak, train_step_ms),
                  phase_train_remat(torch, cfg, S, card)):
         for name, n in more.items():
             launches[name] += n

@@ -73,11 +73,13 @@ class HyperparameterOptConfig(LagomConfig):
             lease's device count), gives a ``LocalRing`` of ``sp`` ranks on
             the lease's first device; the default "dp" and every other
             preset raise ``NotImplementedError`` when a train_fn asks for
-            ``ctx`` (ROADMAP queue 1 item 7).
+            ``ctx``: a mesh spans one process per card, and trials are
+            threads (a mesh inside a trial's lease is ROADMAP queue 1 item
+            7h; ``lagom(train_fn, DistributedConfig(...))`` runs a mesh).
         :param driver_addr: pod mode, where remote trial workers connect
             (reference: Spark's cross-host executors, spark_driver.py:136-145).
             Not ported: setting it, or the MAGGY_TPU_DRIVER env var, raises
-            ``NotImplementedError`` (ROADMAP queue 1 item 7).
+            ``NotImplementedError`` (ROADMAP queue 1 item 7f).
         :param worker_timeout: pod mode's liveness limit; kept so configs
             carry over, unused until pod mode is ported.
         :param trial_retries: how many times a trial lost to a TRANSIENT

@@ -9,7 +9,7 @@ launch executors → await completion → final callback → stop.
 Execution substrate: instead of Spark's ``foreachPartition`` long-running tasks
 (spark_driver.py:136-145), executors are local worker threads, each leasing a
 disjoint group of CUDA cards (trial ↔ card placement). Pod mode, where remote
-hosts join over the same RPC protocol, is not ported (ROADMAP queue 1 item 7).
+hosts join over the same RPC protocol, is not ported (ROADMAP queue 1 item 7f).
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ def device_groups(devices_per_trial: int = 1, device=None) -> List[List[torch.de
 
 def driver_address(config) -> Optional[str]:
     """Pod-mode detection, copied from :func:`maggy_tpu.core.pod.driver_address`
-    (the rest of ``core/pod.py`` is ROADMAP queue 1 item 7)."""
+    (the rest of ``core/pod.py`` is ROADMAP queue 1 item 7f)."""
     return os.environ.get("MAGGY_TPU_DRIVER") or getattr(config, "driver_addr", None)
 
 
@@ -230,7 +230,7 @@ class Driver(ABC):
 
     def _local_partitions(self) -> List[int]:
         """Partitions this process hosts (every one: pod mode, where remote
-        hosts take some, is ROADMAP queue 1 item 7)."""
+        hosts take some, is ROADMAP queue 1 item 7f)."""
         return list(range(self.num_executors))
 
     def _launch_executors(self, train_fn: Callable) -> None:

@@ -1,5 +1,5 @@
 """Hyperparameter-optimization driver — the HPO orchestrator; the port's copy
-of :mod:`maggy_tpu.core.driver.hpo` without pod mode (ROADMAP queue 1 item 7).
+of :mod:`maggy_tpu.core.driver.hpo` without pod mode (ROADMAP queue 1 item 7f).
 
 Capability parity with the reference ``HyperparameterOptDriver``
 (core/experiment_driver/optimization_driver.py:40-692): optimizer/early-stop
@@ -103,8 +103,8 @@ class HyperparameterOptDriver(Driver):
         # ported
         if driver_address(config):
             raise NotImplementedError(
-                "pod mode (driver_addr / MAGGY_TPU_DRIVER) is ROADMAP queue 1 item 7 "
-                "(multi-device training), not ported yet"
+                "pod mode (driver_addr / MAGGY_TPU_DRIVER) is ROADMAP queue 1 item 7f "
+                "(pod mode and elasticity), not ported yet"
             )
 
         self.num_executors = max(

@@ -63,10 +63,17 @@ def trial_executor_fn(
             from maggy_tpu_torch.parallel.spec import ShardingSpec
             from maggy_tpu_torch.train.trainer import TrainContext
 
-            # honor a sharding preset configured on the experiment; default
-            # dp, which the port lacks (ShardingSpec raises, naming its item)
+            # honor a sharding preset configured on the experiment (default
+            # dp); a trial is a thread of the driver, so only the ring runs
+            # inside its lease: a mesh spans one process per card
             preset = getattr(config, "sharding", None) or "dp"
             spec = ShardingSpec.preset(preset, len(lease)) if isinstance(preset, str) else preset
+            if spec.sp == 1:
+                raise NotImplementedError(
+                    f"a trial's ctx over a mesh ({spec}) is ROADMAP queue 1 item 7h, not ported yet: "
+                    "a mesh spans one process per card and trials run as threads; "
+                    "lagom(train_fn, DistributedConfig(...)) runs a mesh"
+                )
             _ctx_cache["ctx"] = TrainContext.local(spec, device=lease[0])
         return _ctx_cache["ctx"]
 

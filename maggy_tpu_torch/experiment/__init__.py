@@ -5,8 +5,9 @@ Parity with the reference's lagom dispatch (experiment/experiment.py:21-45,
 experiment_python.py:48-197): a single-experiment-at-a-time guard, app/run-id
 bookkeeping, and driver selection by singledispatch on the config type. Trials
 run in local executor threads, each on its lease of CUDA cards (or the CPU
-with ``device="cpu"``). Single runs, HPO and ablation are ported;
-distributed training and pod workers (ROADMAP queue 1 item 7) raise.
+with ``device="cpu"``). Single runs, HPO, ablation and distributed training
+(one spawned process per card, each an NCCL rank on a mesh) are ported;
+pod workers (ROADMAP queue 1 item 7f) raise.
 
 "Lagom" (Swedish): not too little, not too much — the reference's name for
 running experiments with just the right amount of resources.
@@ -19,7 +20,13 @@ from functools import singledispatch
 from typing import Any, Callable, Optional
 
 from maggy_tpu_torch import util
-from maggy_tpu_torch.config import AblationConfig, BaseConfig, HyperparameterOptConfig, LagomConfig
+from maggy_tpu_torch.config import (
+    AblationConfig,
+    BaseConfig,
+    DistributedConfig,
+    HyperparameterOptConfig,
+    LagomConfig,
+)
 
 APP_ID: Optional[str] = None
 RUN_ID: int = 0
@@ -86,8 +93,7 @@ def lagom(train_fn: Callable, config: LagomConfig) -> Any:
 # the JAX package's other config kinds, by class name (the port has no such
 # classes yet), and the ROADMAP item that ports each
 _NOT_PORTED = {
-    "DistributedConfig": "ROADMAP queue 1 item 7 (multi-device training)",
-    "TpuDistributedConfig": "ROADMAP queue 1 item 7 (multi-device training)",
+    "TuneConfig": "ROADMAP queue 1 item 9 (tooling)",
 }
 
 
@@ -98,7 +104,7 @@ def lagom_driver(config, app_id: str, run_id: int):
         raise NotImplementedError(f"{type(config).__name__} experiments are {item}, not ported yet")
     raise TypeError(
         f"Unsupported config type {type(config).__name__}; expected a "
-        "LagomConfig subclass (BaseConfig, HyperparameterOptConfig, AblationConfig)."
+        "LagomConfig subclass (BaseConfig, HyperparameterOptConfig, AblationConfig, DistributedConfig)."
     )
 
 
@@ -123,6 +129,13 @@ def _(config: AblationConfig, app_id: str, run_id: int):
     return AblationDriver(config, app_id, run_id)
 
 
+@lagom_driver.register(DistributedConfig)
+def _(config: DistributedConfig, app_id: str, run_id: int):
+    from maggy_tpu_torch.core.driver.distributed import DistributedTrainingDriver
+
+    return DistributedTrainingDriver(config, app_id, run_id)
+
+
 def _maybe_run_as_pod_worker(train_fn: Callable, config) -> None:
     """Pod mode: a process told to be a worker (``MAGGY_TPU_ROLE=worker``,
     ``MAGGY_TPU_DRIVER`` or ``config.driver_addr``) would join a remote
@@ -136,5 +149,5 @@ def _maybe_run_as_pod_worker(train_fn: Callable, config) -> None:
     ):
         raise NotImplementedError(
             "pod workers (MAGGY_TPU_ROLE / MAGGY_TPU_DRIVER / driver_addr) are "
-            "ROADMAP queue 1 item 7 (multi-device training), not ported yet"
+            "ROADMAP queue 1 item 7f (pod mode and elasticity), not ported yet"
         )

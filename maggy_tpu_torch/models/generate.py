@@ -13,7 +13,7 @@ Greedy (``temperature=0``) or temperature sampling with optional top-k, drawn
 from a ``torch.Generator``. Every loop stays on the device: nothing is read
 back to the host until the caller reads the result. The JAX package's
 ``cache_shardings`` and ``mesh`` arguments belong to the multi-device slice
-(ROADMAP queue 1 item 7): passing a mesh raises.
+(ROADMAP queue 1 item 7g): passing a mesh raises.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from maggy_tpu_torch.models.transformer import KVCache
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "sharded KV caches belong to the multi-device slice (ROADMAP queue 1 item 7)"
+            "sharded KV caches belong to the multi-device slice (ROADMAP queue 1 item 7g)"
         )
 
 

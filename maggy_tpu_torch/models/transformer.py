@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -227,16 +228,24 @@ class DecoderConfig:
         )
 
 
-class Dense(nn.Module):
+class Dense(nn.Linear):
     """Bias-free projection computed in ``cfg.dtype``: input and fp32 weight
-    are both cast, as flax's ``DenseGeneral(dtype=...)`` does."""
+    are both cast, as flax's ``DenseGeneral(dtype=...)`` does. An
+    ``nn.Linear`` (with no bias) so that tensor parallelism's
+    ``ColwiseParallel``/``RowwiseParallel`` take it; its weights come from
+    ``Decoder.reset_parameters``, never from Linear's own initialiser."""
 
     def __init__(self, d_in: int, d_out: int, cfg: DecoderConfig, device):
-        super().__init__()
+        nn.Module.__init__(self)
         self.cfg = cfg
+        self.in_features, self.out_features = d_in, d_out
         self.weight = nn.Parameter(
             torch.empty((d_out, d_in), dtype=cfg.param_dtype, device=device)
         )
+        self.register_parameter("bias", None)
+
+    def reset_parameters(self) -> None:
+        raise TypeError("Dense weights are drawn by Decoder.reset_parameters(generator)")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
@@ -314,13 +323,19 @@ class Attention(nn.Module):
 
     def forward(self, x, positions, segment_ids=None, kv=None):
         """``kv``: ``(step, layer)`` on the cache path — the forward's
-        :class:`_CacheStep` and this layer's index into its cache."""
+        :class:`_CacheStep` and this layer's index into its cache. The head
+        counts come from the projections' outputs: under tensor
+        parallelism each rank holds ``n_heads/tp`` query and
+        ``n_kv_heads/tp`` KV heads."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
-        q = self.wq(x).view(b, s, cfg.n_heads, hd)
-        k = self.wk(x).view(b, s, cfg.n_kv_heads, hd)
-        v = self.wv(x).view(b, s, cfg.n_kv_heads, hd)
+        q = self.wq(x)
+        k = self.wk(x)
+        v = self.wv(x)
+        q = q.view(b, s, q.shape[-1] // hd, hd)
+        k = k.view(b, s, k.shape[-1] // hd, hd)
+        v = v.view(b, s, v.shape[-1] // hd, hd)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         if kv is not None:
@@ -330,7 +345,7 @@ class Attention(nn.Module):
         else:
             attn = cfg.attention_fn or auto_attention
             out = attn(q, k, v, causal=True, segment_ids=segment_ids)
-        return self.wo(out.reshape(b, s, cfg.n_heads * hd))
+        return self.wo(out.reshape(b, s, out.shape[2] * hd))
 
 
 @dataclasses.dataclass
@@ -525,6 +540,41 @@ class DecoderLayer(nn.Module):
         return x + (m if gates is None else m * gates[1].to(m.dtype))
 
 
+def _vocab_sharded(table) -> bool:
+    """Whether ``table`` is the vocab-sharded DTensor that tensor
+    parallelism makes of the embedding (:mod:`maggy_tpu_torch.parallel.sharding`)."""
+    dtensor = sys.modules.get("torch.distributed.tensor")  # loaded wherever a DTensor exists
+    return dtensor is not None and isinstance(table, dtensor.DTensor)
+
+
+def _replicated(x, table):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(x, table.device_mesh, [Replicate()], run_check=False)
+
+
+def _gathered(y) -> torch.Tensor:
+    from torch.distributed.tensor import Replicate
+
+    return y.redistribute(placements=[Replicate()]).to_local()
+
+
+def _lookup(tokens, table):
+    """Embedding rows; over a vocab-sharded table each rank looks up the ids
+    it holds and the partial rows are summed over ``tensor``."""
+    if _vocab_sharded(table):
+        return _gathered(F.embedding(_replicated(tokens, table), table))
+    return F.embedding(tokens, table)
+
+
+def _tied_logits(x, table):
+    """``x @ table.T``; over a vocab-sharded table each rank computes its
+    vocabulary's logits and they are gathered over ``tensor``."""
+    if _vocab_sharded(table):
+        return _gathered(F.linear(_replicated(x, table), table))
+    return F.linear(x, table)
+
+
 class Decoder(nn.Module):
     """LLaMA-style causal LM: ``forward(tokens [B,S]) -> logits [B,S,V]`` fp32.
 
@@ -585,7 +635,7 @@ class Decoder(nn.Module):
         cfg = self.cfg
         # gather-then-cast: the same values as casting the table first
         # (flax's jnp.asarray(embed, dtype)[tokens]) without a bf16 table copy
-        x = F.embedding(tokens, self.embedding).to(cfg.dtype)
+        x = _lookup(tokens, self.embedding).to(cfg.dtype)
         # no gradients (hence no remat) on the cache path
         recompute = cfg.remat and cfg.remat_policy != "everything" and step is None
         remat_kw = {}
@@ -602,7 +652,7 @@ class Decoder(nn.Module):
                 x = layer(x, positions, gates, segment_ids)
         x = self.final_norm(x)
         if cfg.tie_embeddings:
-            logits = F.linear(x, self.embedding.to(cfg.dtype))
+            logits = _tied_logits(x, self.embedding.to(cfg.dtype))
         else:
             logits = self.lm_head(x)
         if cfg.logits_softcap:

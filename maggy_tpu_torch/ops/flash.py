@@ -22,13 +22,15 @@ back from one to the other.
 
 Layouts are the JAX package's: q/o ``[B, S, H, D]``, k/v ``[B, S, Kh, D]``
 (self-attention: q and k/v have the same length), LSE ``[B, H, S]`` fp32,
-segment ids ``[B, S]``. The kernels read q/k/v through
+segment ids ``[B, S]``. Under tensor parallelism each rank passes its own
+heads (``H/tp`` and ``Kh/tp``) as plain tensors; a DTensor raises. The kernels read q/k/v through
 their strides and mask ragged sequence edges themselves, so there is no
 alignment fallback.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Optional, Tuple
 
 import torch
@@ -147,7 +149,19 @@ def _strides(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _refuse_dtensor(*tensors) -> None:
+    """The wrappers take plain local tensors: under tensor parallelism a
+    rank's batch rows, its own heads and the whole sequence, as the JAX
+    package's ``sharded_flash_attention`` hands each device its block. A
+    DTensor here would be a layout the caller has not resolved: it raises."""
+    dtensor = sys.modules.get("torch.distributed.tensor")  # loaded wherever a DTensor exists
+    if dtensor is not None and any(isinstance(t, dtensor.DTensor) for t in tensors):
+        raise TypeError("flash attention takes plain local tensors, not DTensors: pass each rank's shard "
+                        "(its batch rows and heads, the whole sequence)")
+
+
 def _check(q, k, v, segment_ids):
+    _refuse_dtensor(q, k, v, segment_ids)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash kernel: {name} is on {t.device}, not CUDA")
@@ -291,6 +305,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal):
+        _refuse_dtensor(q, k, v, segment_ids)
         _on_cpu(q)  # a device other than cuda or cpu raises here, before dispatch
         o, lse = flash_forward_op(q, k, v, segment_ids, causal)
         ctx.save_for_backward(q, k, v, o, lse, segment_ids)

@@ -1,0 +1,122 @@
+"""Device-mesh construction: the port's copy of :mod:`maggy_tpu.parallel.mesh`.
+
+A ``torch.distributed.device_mesh.DeviceMesh`` over the six axes of
+:class:`~maggy_tpu_torch.parallel.spec.ShardingSpec`, named as the JAX
+package names them and laid out in its order (``stage`` outermost,
+``tensor`` innermost). Each rank of the mesh is one process holding one
+device, so the mesh is built over an initialised default process group:
+NCCL with one card per rank, or gloo on the CPU. Axes of extent 1 stay in
+the mesh, as in JAX, so ``mesh["fsdp"]`` always names a dimension.
+
+Host-side agreement (:func:`any_rank`, :func:`from_rank0`) runs over a gloo
+twin of the default group (:func:`host_group`), so a flag or a step number
+crosses the ranks without waiting for the card.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional, Union
+
+import torch
+
+from maggy_tpu_torch.parallel.spec import MESH_AXES, ShardingSpec
+
+_ambient = threading.local()
+# how long a rank waits for its peers at each collective before NCCL or gloo
+# gives up
+PROCESS_GROUP_TIMEOUT_S = 600.0
+# (the default process group, its gloo twin)
+_host: tuple = (None, None)
+
+
+def make_mesh(spec: ShardingSpec, device_type: str = "cuda"):
+    """A DeviceMesh for ``spec`` over the default process group, whose size
+    must equal ``spec.num_devices``. ``device_type`` is ``"cuda"`` (each rank
+    on its current card) unless the caller asks for ``"cpu"``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            "a mesh spans one process per device: initialise torch.distributed "
+            "(init_process_group) before make_mesh"
+        )
+    world = dist.get_world_size()
+    if spec.num_devices != world:
+        raise ValueError(
+            f"ShardingSpec covers {spec.num_devices} devices but the process group has "
+            f"{world} ranks; use spec.scaled_to({world})."
+        )
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"a mesh lies on cuda or cpu devices, got {device_type!r}")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device_type='cpu' for a mesh of CPU ranks")
+    return init_device_mesh(device_type, spec.axis_sizes(), mesh_dim_names=MESH_AXES)
+
+
+def mesh_for(num_devices: Optional[int] = None, sharding: Union[str, ShardingSpec] = "fsdp",
+             device_type: str = "cuda"):
+    """Resolve a preset or spec against the process group's ranks (a spec of
+    another size is scaled along dp) and build its mesh: ``(mesh, spec)``."""
+    import torch.distributed as dist
+
+    if num_devices is None:
+        num_devices = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if isinstance(sharding, ShardingSpec):
+        spec = sharding if sharding.num_devices == num_devices else sharding.scaled_to(num_devices)
+    else:
+        spec = ShardingSpec.preset(sharding, num_devices)
+    return make_mesh(spec, device_type), spec
+
+
+def ambient_mesh():
+    """The mesh a :class:`~maggy_tpu_torch.train.TrainContext` made current
+    in this thread (None outside one)."""
+    return getattr(_ambient, "mesh", None)
+
+
+def set_ambient_mesh(mesh) -> None:
+    _ambient.mesh = mesh
+
+
+def mesh_shape(mesh) -> dict:
+    """``{axis name: extent}`` of a DeviceMesh, in its order."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def host_group():
+    """A gloo group over every rank of the default process group (the
+    default group itself when it is gloo), made at its first use, once per
+    default group: that first use is a collective, reached by every rank."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d
+
+    global _host
+    default = distributed_c10d._get_default_group()
+    if _host[0] is not default:
+        twin = default if dist.get_backend(default) == "gloo" else dist.new_group(
+            backend="gloo", timeout=datetime.timedelta(seconds=PROCESS_GROUP_TIMEOUT_S))
+        _host = (default, twin)
+    return _host[1]
+
+
+def any_rank(flag: bool) -> bool:
+    """Whether ``flag`` is true on any rank; every rank must call it."""
+    import torch.distributed as dist
+
+    t = torch.tensor([int(bool(flag))])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=host_group())
+    return bool(t.item())
+
+
+def from_rank0(value):
+    """Rank 0's ``value`` (any picklable object) on every rank; every rank
+    must call it, and what the others pass is ignored."""
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0, group=host_group())
+    return box[0]

@@ -1,0 +1,205 @@
+"""Logical-axis sharding rules, applied to a ``Decoder`` on a DeviceMesh.
+
+The port's copy of the rule tables of :mod:`maggy_tpu.parallel.sharding`
+and a counterpart of its ``params_shardings``: every Decoder parameter
+carries the JAX package's logical axis names (:func:`logical_axes`), the
+rules map them to mesh axes, and :func:`shard_decoder` lays the model out:
+
+* ``tensor``: DTensor ``parallelize_module``. A projection whose output
+  dim maps to ``tensor`` is ``ColwiseParallel`` (``wq``, ``wk``, ``wv``,
+  ``w_gate``, ``w_up``, ``lm_head``), one whose input dim does is
+  ``RowwiseParallel`` (``wo``, ``w_down``); the embedding table is sharded
+  over the vocabulary. ``lm_head``'s logits are gathered over ``tensor``
+  (fp32 logits whole on every rank, for the loss), as are the embedding's
+  rows. The norm scales are DTensors replicated over ``tensor``, so every
+  parameter lies on one mesh.
+* ``fsdp`` (and ``data``): FSDP2 ``fully_shard`` per ``DecoderLayer``,
+  then on the root, over the (``data``, ``fsdp``) sub-mesh: HSDP,
+  replicated over ``data`` and sharded over ``fsdp``, when ``dp > 1``;
+  on a one-rank mesh too (its ``fsdp`` axis at extent 1), but not under
+  ``tp`` alone.
+  Gradients are reduced as a sum, not FSDP2's mean (see ``Trainer.step``).
+
+Two deliberate divergences from the JAX layout (ROADMAP "Deliberate
+divergences"): ``wk``/``wv`` are column-parallel too (``kv`` maps to
+``tensor`` here, where JAX replicates it), so each rank holds its own
+``n_kv_heads/tp`` KV heads, the slice JAX's ``sharded_flash_attention``
+takes out anyway, and their gradients need no reduction over ``tensor``;
+and FSDP2 shards every parameter's dim 0 over ``fsdp`` (norm scales too),
+not the dim named ``embed``. Where a tensor-parallel extent does not divide
+a dim, JAX replicates that dim and attends through XLA; the port has no
+such fallback and raises up front.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+from maggy_tpu_torch.parallel.spec import AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_SEQ, AXIS_TENSOR
+
+# the JAX package's DEFAULT_RULES: logical name -> mesh axis (or a tuple of
+# mesh axes, or None for replicated); kept to hold PORT_RULES against
+DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
+    ("batch", (AXIS_DATA, AXIS_FSDP)),
+    ("activation_seq", AXIS_SEQ),
+    ("embed", AXIS_FSDP),
+    ("mlp", AXIS_TENSOR),
+    ("heads", AXIS_TENSOR),
+    ("kv", None),
+    ("vocab", AXIS_TENSOR),
+    ("expert", AXIS_EXPERT),
+    ("norm", None),
+    ("conv_spatial", None),
+    ("conv_in", None),
+    ("conv_out", AXIS_FSDP),
+)
+# what the port lays out, its only table: the KV projections follow
+# ``tensor`` too
+PORT_RULES: Tuple[Tuple[str, Any], ...] = tuple(
+    (name, AXIS_TENSOR if name == "kv" else axis) for name, axis in DEFAULT_RULES
+)
+
+# Decoder parameter names (PyTorch's [out, in] layout) -> the logical axes
+# of each dim, the JAX Decoder's names (models/transformer.py: wq/wk/wv
+# ("embed", "heads"|"kv", None), wo ("heads", None, "embed"), w_gate/w_up
+# ("embed", "mlp"), w_down ("mlp", "embed"), embedding ("vocab", "embed"),
+# lm_head ("embed", "vocab"), norm scales ("norm",)) in that layout
+_DECODER_AXES = (
+    (r"embedding", ("vocab", "embed")),
+    (r"layers\.\d+\.(attn_norm|mlp_norm)\.scale", ("norm",)),
+    (r"final_norm\.scale", ("norm",)),
+    (r"layers\.\d+\.attn\.wq\.weight", ("heads", "embed")),
+    (r"layers\.\d+\.attn\.w[kv]\.weight", ("kv", "embed")),
+    (r"layers\.\d+\.attn\.wo\.weight", ("embed", "heads")),
+    (r"layers\.\d+\.mlp\.w_(gate|up)\.weight", ("mlp", "embed")),
+    (r"layers\.\d+\.mlp\.w_down\.weight", ("embed", "mlp")),
+    (r"lm_head\.weight", ("vocab", "embed")),
+)
+
+
+def logical_to_mesh_axes(logical: Sequence[Optional[str]]) -> Tuple:
+    """The mesh axes (under :data:`PORT_RULES`) of each logical axis."""
+    table = dict(PORT_RULES)
+    return tuple(table.get(name) if name is not None else None for name in logical)
+
+
+def logical_axes(name: str) -> Tuple[str, ...]:
+    """The logical axes of the Decoder parameter ``name`` (a
+    ``named_parameters()`` key, FSDP2's and DTensor's too)."""
+    for pattern, axes in _DECODER_AXES:
+        if re.fullmatch(pattern, name):
+            return axes
+    raise KeyError(f"no logical axes for Decoder parameter {name!r}")
+
+
+def placed_mesh_axes(param) -> frozenset:
+    """The mesh axes (of extent > 1) a parameter is actually sharded over:
+    those of its DTensor placements that shard a dim."""
+    mesh = getattr(param, "device_mesh", None)
+    if mesh is None:
+        return frozenset()
+    names = mesh.mesh_dim_names
+    return frozenset(
+        names[i] for i, p in enumerate(param.placements)
+        if not (p.is_replicate() or p.is_partial()) and mesh.mesh.shape[i] > 1
+    )
+
+
+def check_tensor_parallel(cfg, tp: int) -> None:
+    """Raise unless ``tp`` divides every dim tensor parallelism splits:
+    the query and KV heads, the MLP width and the vocabulary."""
+    if tp <= 1:
+        return
+    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size}
+    bad = {k: v for k, v in dims.items() if v % tp}
+    if bad:
+        raise ValueError(
+            f"tensor parallelism tp={tp} must divide {sorted(bad)} ({bad}); JAX would replicate "
+            "those dims and attend through XLA, the port has no such fallback"
+        )
+
+
+def _sub_mesh(mesh, axes):
+    names = [a for a in axes if a in mesh.mesh_dim_names]
+    return mesh[names[0]] if len(names) == 1 else mesh[tuple(names)]
+
+
+def batch_group_axes(mesh_shape: Dict[str, int]) -> Tuple[str, ...]:
+    """The mesh axes the batch is split over, of extent > 1."""
+    return tuple(a for a in (AXIS_DATA, AXIS_FSDP) if mesh_shape.get(a, 1) > 1)
+
+
+def fsdp_applies(mesh_shape: Dict[str, int]) -> bool:
+    """Whether :func:`shard_decoder` applies FSDP2: whenever the batch is
+    split, and on a mesh that splits nothing (one rank: its fsdp axis at
+    extent 1, as JAX always has it); not under ``tensor`` alone."""
+    return bool(batch_group_axes(mesh_shape)) or mesh_shape.get(AXIS_TENSOR, 1) == 1
+
+
+def _replicated_inputs(mod, inputs, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return tuple(DTensor.from_local(x, mesh, [Replicate()], run_check=False) for x in inputs)
+
+
+def _local_output(mod, output, mesh):
+    return output.to_local()
+
+
+def shard_decoder(model, mesh):
+    """Lay ``model`` (a materialised ``Decoder``, the same weights on every
+    rank) out on ``mesh`` in place and return it: tensor parallelism over
+    ``tensor``, then FSDP2 over (``data``, ``fsdp``). Every rank must call
+    it. Afterwards each parameter is a DTensor (or, on a mesh with no axis
+    above 1 that touches it, the plain tensor)."""
+    from torch import nn
+
+    from maggy_tpu_torch.models.transformer import Dense, RMSNorm
+    from maggy_tpu_torch.parallel.mesh import mesh_shape
+
+    shape = mesh_shape(mesh)
+    tp = shape.get(AXIS_TENSOR, 1)
+    check_tensor_parallel(model.cfg, tp)
+    if tp > 1:
+        from torch.distributed.tensor import Replicate, Shard, distribute_module, distribute_tensor
+        from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
+
+        tp_mesh = mesh[AXIS_TENSOR]
+        plan = {}
+        for name, mod in model.named_modules():
+            if not isinstance(mod, Dense):
+                continue
+            out_axis, in_axis = logical_to_mesh_axes(logical_axes(name + ".weight"))
+            if out_axis == AXIS_TENSOR:
+                # lm_head's vocab-sharded logits are gathered for the loss
+                plan[name] = ColwiseParallel(output_layouts=Replicate()) if name == "lm_head" else ColwiseParallel()
+            elif in_axis == AXIS_TENSOR:
+                plan[name] = RowwiseParallel()
+        parallelize_module(model, tp_mesh, plan)
+        for mod in model.modules():
+            if isinstance(mod, RMSNorm):
+                # the scales replicated over `tensor` as DTensors, computed
+                # locally on the replicated residual stream: every parameter
+                # then lies on one mesh, as an optimizer's foreach kernels
+                # need (one list cannot mix plain tensors and DTensors)
+                distribute_module(mod, tp_mesh, input_fn=_replicated_inputs, output_fn=_local_output)
+        if logical_to_mesh_axes(logical_axes("embedding"))[0] == AXIS_TENSOR:
+            table = model.embedding
+            model.embedding = nn.Parameter(distribute_tensor(table.detach(), tp_mesh, [Shard(0)]),
+                                           requires_grad=table.requires_grad)
+    if fsdp_applies(shape):
+        from torch.distributed.fsdp import fully_shard
+
+        fsdp_mesh = _sub_mesh(mesh, (AXIS_DATA, AXIS_FSDP) if shape.get(AXIS_DATA, 1) > 1 else (AXIS_FSDP,))
+        for layer in model.layers:
+            fully_shard(layer, mesh=fsdp_mesh)
+        fully_shard(model, mesh=fsdp_mesh)
+        for mod in model.modules():
+            if hasattr(mod, "set_gradient_divide_factor"):
+                # each rank differentiates its share of the global mean:
+                # the gradients add up, FSDP2 must not average them; a
+                # plain SUM (gloo has no pre-multiplied sum)
+                mod.set_gradient_divide_factor(1.0)
+                mod.set_force_sum_reduction_for_comms(True)
+    return model

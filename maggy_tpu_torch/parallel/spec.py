@@ -1,61 +1,168 @@
-"""Parallelism specification: the axis names and ``ShardingSpec``.
+"""Parallelism specification: the axis names, ``ShardingSpec`` and
+``SliceTopology``.
 
-Own copy of what the port needs of :mod:`maggy_tpu.parallel.spec` (the port
-imports nothing of the JAX package). The JAX spec declares six axes
-(pipeline stage, data, fsdp, expert, sequence, tensor) and the gradient
-overlap knobs; the port runs sequence parallelism (``sp``, the ring) alone
-so far. Naming any other axis or knob with a value that turns it on raises
-``NotImplementedError`` at construction (ROADMAP queue 1 item 7).
+Own copy of :mod:`maggy_tpu.parallel.spec` (the port imports nothing of the
+JAX package). A spec declares the mesh the JAX package lays out over six
+axes (pipeline stage, data, fsdp, expert, sequence, tensor); the port runs
+``dp``, ``fsdp`` and ``tp`` on a ``torch.distributed`` ``DeviceMesh`` (one
+rank per card) and ``sp`` over the ring. What it does not run yet raises
+``NotImplementedError`` at construction, naming its ROADMAP queue 1 item:
+``ep`` (item 8), ``pp`` (7e), ``zero_stage=1`` and ``bucket_mb`` (7c), and
+``sp > 1`` together with another axis above 1 (7a2, the ring inside a
+larger mesh).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
+AXIS_STAGE = "stage"
+AXIS_DATA = "data"
+AXIS_FSDP = "fsdp"
+AXIS_TENSOR = "tensor"
 AXIS_SEQ = "seq"
-# the JAX package's mesh axes, in its layout-priority order
-MESH_AXES = ("stage", "data", "fsdp", "expert", AXIS_SEQ, "tensor")
+AXIS_EXPERT = "expert"
+# outermost data axis of a multi-slice mesh (pod mode, ROADMAP item 7f)
+AXIS_SLICE = "slice"
 
-# the JAX spec's other fields, each with the value that leaves it off
-_NOT_PORTED = {"dp": 1, "fsdp": 1, "tp": 1, "ep": 1, "pp": 1, "zero_stage": 0, "bucket_mb": None}
+# the JAX package's mesh axes, in its layout-priority order (outer to inner)
+MESH_AXES = (AXIS_STAGE, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQ, AXIS_TENSOR)
+SLICE_MESH_AXES = (AXIS_SLICE,) + MESH_AXES
+
+# ShardingSpec fields that are mesh-axis extents (the rest are tuning knobs)
+_AXIS_FIELDS = ("dp", "fsdp", "tp", "sp", "ep", "pp")
 
 
-def _refuse(what) -> None:
-    raise NotImplementedError(
-        f"the port runs sequence parallelism only; {what} is ROADMAP queue 1 "
-        "item 7 (multi-device training), not ported yet"
-    )
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(f"{what} is ROADMAP queue 1 item {item}, not ported yet")
 
 
 @dataclasses.dataclass(frozen=True, init=False)
 class ShardingSpec:
-    """The sequence-parallel degree ``sp`` (ring attention over ``sp``
-    ranks); 1 disables it. The JAX spec's other fields may be named only
-    with the value that leaves them off."""
+    """Logical parallelism degrees; 1 disables an axis.
 
+    ``dp``    data parallelism: the batch over ``data``, parameters
+              replicated (FSDP2's HSDP replicate dimension);
+    ``fsdp``  parameters, gradients and optimizer state sharded over
+              ``fsdp`` (FSDP2 ``fully_shard``), the batch over it too;
+    ``tp``    tensor parallelism over ``tensor`` (DTensor
+              ``parallelize_module``): attention heads, the MLP hidden
+              width and the vocabulary;
+    ``sp``    sequence parallelism, ring attention (alone, for now);
+    ``ep``, ``pp``, ``zero_stage``, ``bucket_mb``: the JAX spec's fields,
+              accepted only with the value that leaves them off.
+    """
+
+    dp: int
+    fsdp: int
+    tp: int
     sp: int
+    ep: int
+    pp: int
+    zero_stage: int
+    bucket_mb: Optional[float]
 
-    def __init__(self, sp: int = 1, **others):
-        unknown = sorted(set(others) - set(_NOT_PORTED))
+    def __init__(self, dp: int = 1, fsdp: int = 1, tp: int = 1, sp: int = 1, ep: int = 1, pp: int = 1,
+                 zero_stage: int = 0, bucket_mb: Optional[float] = None, **unknown):
         if unknown:
-            raise TypeError(f"ShardingSpec got unknown fields {unknown}")
-        on = {k: v for k, v in others.items() if v != _NOT_PORTED[k]}
-        if on:
-            _refuse(on)
-        if not isinstance(sp, int) or sp < 1:
-            raise ValueError(f"ShardingSpec.sp must be a positive int, got {sp!r}")
-        object.__setattr__(self, "sp", sp)
+            raise TypeError(f"ShardingSpec got unknown fields {sorted(unknown)}")
+        values = dict(dp=dp, fsdp=fsdp, tp=tp, sp=sp, ep=ep, pp=pp, zero_stage=zero_stage, bucket_mb=bucket_mb)
+        for name in _AXIS_FIELDS:
+            v = values[name]
+            if not isinstance(v, int) or v < 1:
+                raise ValueError(f"ShardingSpec.{name} must be a positive int, got {v!r}")
+        if zero_stage not in (0, 1):
+            raise ValueError(f"ShardingSpec.zero_stage must be 0 or 1, got {zero_stage!r}")
+        if bucket_mb is not None and not float(bucket_mb) > 0:
+            raise ValueError(f"ShardingSpec.bucket_mb must be positive (or None), got {bucket_mb!r}")
+        if ep > 1:
+            _refuse(f"expert parallelism (ep={ep}, with moe.py)", "8")
+        if pp > 1:
+            _refuse(f"pipeline parallelism (pp={pp})", "7e")
+        if zero_stage == 1:
+            _refuse("ZeRO-1 (zero_stage=1)", "7c")
+        if bucket_mb is not None:
+            _refuse(f"bucketed gradient reduction (bucket_mb={bucket_mb})", "7c")
+        if sp > 1 and dp * fsdp * tp > 1:
+            _refuse(f"the ring inside a larger mesh (sp={sp} with dp={dp}, fsdp={fsdp}, tp={tp})", "7a2")
+        for name, v in values.items():
+            object.__setattr__(self, name, v)
 
     @property
     def num_devices(self) -> int:
-        return self.sp
+        return self.dp * self.fsdp * self.tp * self.sp * self.ep * self.pp
+
+    def axis_sizes(self) -> Tuple[int, ...]:
+        """Extent per :data:`MESH_AXES` entry."""
+        return (self.pp, self.dp, self.fsdp, self.ep, self.sp, self.tp)
 
     @classmethod
     def preset(cls, name: str, num_devices: int) -> "ShardingSpec":
-        """The "sp" preset: every device on the sequence axis. The JAX
-        package's other presets raise."""
+        """The JAX package's presets: "dp"/"ddp" pure data parallel,
+        "fsdp"/"zero"/"zero3" full sharding, "tp" tensor parallel, "2d"
+        fsdp x tp, "sp" sequence parallel; "pp" and "ep" raise, naming
+        their items."""
+        n = num_devices
+        if name in ("dp", "ddp"):
+            return cls(dp=n)
+        if name in ("fsdp", "zero", "zero3"):
+            return cls(fsdp=n)
+        if name == "tp":
+            return cls(tp=n)
         if name == "sp":
-            return cls(sp=num_devices)
-        if name in ("dp", "ddp", "fsdp", "zero", "zero3", "tp", "pp", "2d", "ep"):
-            _refuse(f"the {name!r} preset")
+            return cls(sp=n)
+        if name == "pp":
+            return cls(pp=n)
+        if name == "2d":
+            tp = _largest_factor_leq(n, max(1, int(n**0.5)))
+            return cls(fsdp=n // tp, tp=tp)
+        if name == "ep":
+            ep = _largest_factor_leq(n, max(1, int(n**0.5)))
+            return cls(ep=ep, fsdp=n // ep)
         raise ValueError(f"Unknown sharding preset {name!r}")
+
+    def scaled_to(self, num_devices: int) -> "ShardingSpec":
+        """Grow or shrink the dp axis so the spec covers exactly ``num_devices``."""
+        rest = self.fsdp * self.tp * self.sp * self.ep * self.pp
+        if num_devices % rest != 0:
+            raise ValueError(f"{num_devices} devices not divisible by non-dp axes product {rest}")
+        return dataclasses.replace(self, dp=num_devices // rest)
+
+
+@dataclasses.dataclass(frozen=True)
+class SliceTopology:
+    """A multi-slice layout: ``n_slices`` slices, each running
+    ``slice_spec``, under an outer :data:`AXIS_SLICE` data axis. A value
+    class here: the sliced mesh it describes (pod mode, elastic reshape) is
+    ROADMAP queue 1 item 7f."""
+
+    n_slices: int = 1
+    slice_spec: ShardingSpec = dataclasses.field(default_factory=ShardingSpec)
+
+    def __post_init__(self):
+        if not isinstance(self.n_slices, int) or self.n_slices < 1:
+            raise ValueError(f"SliceTopology.n_slices must be a positive int, got {self.n_slices!r}")
+
+    @property
+    def num_devices(self) -> int:
+        return self.n_slices * self.slice_spec.num_devices
+
+    @property
+    def devices_per_slice(self) -> int:
+        return self.slice_spec.num_devices
+
+    def axis_sizes(self) -> Tuple[int, ...]:
+        """Extent per :data:`SLICE_MESH_AXES` entry (slice outermost)."""
+        return (self.n_slices,) + self.slice_spec.axis_sizes()
+
+    def with_slices(self, n_slices: int) -> "SliceTopology":
+        """The same per-slice layout at another width."""
+        return dataclasses.replace(self, n_slices=n_slices)
+
+
+def _largest_factor_leq(n: int, cap: int) -> int:
+    for f in range(min(cap, n), 0, -1):
+        if n % f == 0:
+            return f
+    return 1

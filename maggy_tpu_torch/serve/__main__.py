@@ -24,7 +24,7 @@ one copy of the serving weights per card::
     python -m maggy_tpu_torch.serve --config llama3_8b --replicas 2 --prefill-replicas 1
 
 Not ported yet, and refused before anything loads: a ``--mesh`` other than
-``none`` (ROADMAP queue 1 item 7; ``auto`` consults the tuner, item 9).
+``none`` (ROADMAP queue 1 item 7g; ``auto`` consults the tuner, item 9).
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def _refuse_unported(args) -> None:
         )
     if args.mesh and args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: a sharded engine is not ported yet (ROADMAP queue 1 item 7)"
+            f"--mesh {args.mesh}: a sharded engine is not ported yet (ROADMAP queue 1 item 7g)"
         )
 
 

@@ -66,7 +66,7 @@ prefill that reads it.
 **Disaggregated prefill**: :meth:`prefill_only` runs one prompt through a
 one-row dense cache of its own (slots and pages untouched) and returns its
 K/V as CPU tensors; :meth:`admit_from_kv` writes such a pack into a slot
-(through fresh pages when paged). A mesh raises (ROADMAP queue 1 item 7).
+(through fresh pages when paged). A mesh raises (ROADMAP queue 1 item 7g).
 """
 
 from __future__ import annotations
@@ -249,7 +249,7 @@ class Engine:
             )
         if mesh is not None:
             raise NotImplementedError(
-                "a sharded engine belongs to the multi-device slice (ROADMAP queue 1 item 7)"
+                "a sharded engine belongs to the multi-device slice (ROADMAP queue 1 item 7g)"
             )
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:

@@ -32,7 +32,7 @@ replica's server, scheduler and engine, so the engine's KV pool is freed
 when the scheduler thread ends, without the cyclic collector.
 ``respawn()`` rebuilds the whole stack after a kill, charged against the
 router's restart budget. A ``mesh`` (a sharded replica) raises: ROADMAP
-queue 1 item 7.
+queue 1 item 7g.
 """
 
 from __future__ import annotations
@@ -312,7 +312,7 @@ class ReplicaSpec:
         if self.mesh is not None:
             raise NotImplementedError(
                 "a sharded replica (ReplicaSpec.mesh) belongs to the multi-device "
-                "slice (ROADMAP queue 1 item 7)"
+                "slice (ROADMAP queue 1 item 7g)"
             )
 
     def serving_params(self, device: torch.device) -> Dict[str, torch.Tensor]:

@@ -17,6 +17,7 @@ is wrapped, and a mismatch is a gauge (``mem.unattributed``), not an error.
 from __future__ import annotations
 
 import dataclasses
+import sys
 import threading
 from typing import Any, Dict, Optional, Tuple
 
@@ -186,8 +187,11 @@ def array_bytes(tree: Any) -> int:
     helper allocation sites use to size an account. A tensor is counted
     once however often it appears."""
     seen = set()
+    dtensor = sys.modules.get("torch.distributed.tensor")  # loaded wherever a DTensor exists
 
     def walk(node) -> int:
+        if dtensor is not None and isinstance(node, dtensor.DTensor):
+            node = node.to_local()  # what this rank holds of a parameter laid out on a mesh
         if isinstance(node, torch.Tensor):
             key = (node.device, node.data_ptr(), node.numel(), node.dtype)
             if key in seen:

@@ -7,7 +7,8 @@ Counterpart of :mod:`maggy_tpu.train.checkpoint`, with orbax replaced by
   :class:`~maggy_tpu_torch.train.trainer.TrainState` into a trial directory,
   with the JAX package's API and JSON sidecar meta.
 * :func:`restore_zero_compat` — the ZeRO-aware restore ``fit(resume=...)``
-  goes through; only the dense layout is ported (ROADMAP queue 1 item 7).
+  goes through; only the dense layout is ported (ZeRO-1 is ROADMAP queue 1
+  item 7c).
 * experiment resume — :func:`load_finalized_trials` preloads a previous
   experiment's persisted ``trial.json`` records.
 
@@ -21,6 +22,23 @@ the optimizer's full ``state_dict()`` (each parameter's moments and its
 ``step`` tensor, which bias correction reads, and the param-group
 hyperparameters), whose state is keyed by parameter order — so a restore
 into a trainer built the same way puts every value back where it was.
+
+Under a mesh (a model whose parameters are DTensors, laid out by
+``Trainer.make_state``) the checkpoint is rank 0's: ``save``, ``wait``,
+``close`` and ``restore`` are collectives that every rank calls at the
+same point, and every decision in them is rank 0's, taken on rank 0's
+directory and sent to the others (:func:`~maggy_tpu_torch.parallel.mesh.from_rank0`),
+so ranks whose checkpointers name other directories (each rank's own
+``trial_dir``) still agree. A save gathers full state dicts
+(``torch.distributed.checkpoint.state_dict``, ``full_state_dict=True,
+cpu_offload=True``) on every rank, and rank 0 writes them in the same
+format, so a checkpoint is the same file whatever the mesh; every rank
+learns whether rank 0's write committed at the next save, ``wait`` or
+``close`` (within the host group's ``PROCESS_GROUP_TIMEOUT_S``). A
+restore under a mesh loads the file on rank 0 only and broadcasts it
+(``broadcast_from_rank0=True``), each rank keeping its shards: a
+checkpoint moves between meshes, and between a mesh and one device, as
+orbax's restore does in the JAX package.
 
 A save commits atomically, as orbax's does: the step is written into a
 temporary directory whose name is not a step number, its file and the
@@ -76,6 +94,7 @@ class Checkpointer:
         self.directory = os.path.abspath(directory)
         self.max_to_keep = int(max_to_keep)
         self.async_save = async_save
+        self._dist_pending = False  # under a mesh: every rank still awaits rank 0's commit
         os.makedirs(self.directory, exist_ok=True)
         for name in os.listdir(self.directory):  # an interrupted save's leftovers
             if _TMP_MARK in name:
@@ -127,6 +146,8 @@ class Checkpointer:
 
         tel = telemetry.get()
         step = int(step)
+        if _sharded(state.model):
+            return self._save_sharded(step, state, meta, tel)
         if (self._writer is not None and self._writing == step) or step in self.all_steps():
             if not self.async_save:
                 self.wait()
@@ -146,6 +167,34 @@ class Checkpointer:
         if not self.async_save:
             self.wait()
         # the blocking cost: what a save steals from the step time
+        tel.gauge("checkpoint_save_ms", (time.perf_counter() - t0) * 1e3)
+
+    def _save_sharded(self, step: int, state: Any, meta: Optional[Dict[str, Any]], tel: Any) -> None:
+        """A save under a mesh: every rank joins the gather of the full
+        state dicts; rank 0 writes them. Whether the step is saved already
+        is rank 0's answer."""
+        import torch.distributed as dist
+
+        from maggy_tpu_torch.parallel.mesh import from_rank0
+
+        self.wait()  # every rank: the last save has committed
+        if from_rank0(step in self.all_steps() if dist.get_rank() == 0 else None):
+            return
+        t0 = time.perf_counter()
+        with tel.span("checkpoint_save", step=step):
+            payload = _full_payload(step, state)
+        self._dist_pending = True
+        if dist.get_rank() == 0:
+            nbytes = sum(t.numel() * t.element_size() for t in _tensors(payload))
+            if meta is not None:
+                self._write_meta(step, meta)
+            self._writing = step
+            self._writer = threading.Thread(
+                target=self._write, args=(step, payload, nbytes, tel), name="maggy-checkpoint-writer"
+            )
+            self._writer.start()
+        if not self.async_save:
+            self.wait()
         tel.gauge("checkpoint_save_ms", (time.perf_counter() - t0) * 1e3)
 
     def _write(self, step: int, payload: Dict[str, Any], nbytes: int, tel: Any) -> None:
@@ -181,6 +230,9 @@ class Checkpointer:
         if writer is not None:
             writer.join()
         err, self._write_error = self._write_error, None  # race: ok — the writer has joined
+        pending, self._dist_pending = self._dist_pending, False
+        if pending:
+            err = _agree_on_commit(err)
         if err is not None:
             raise RuntimeError(f"checkpoint write under {self.directory} failed") from err
 
@@ -271,15 +323,10 @@ class Checkpointer:
         An explicitly requested step never falls back."""
         from maggy_tpu_torch import telemetry
 
+        if _sharded(state_template.model):
+            return self._restore_sharded(state_template, step, expect_meta)
         explicit = step is not None
-        step = int(step) if step is not None else self.latest_step()
-        if step is None:
-            raise FileNotFoundError(f"No checkpoint found under {self.directory}")
-        candidates = (
-            [step]
-            if explicit
-            else sorted((s for s in self.all_steps() if s <= step), reverse=True)
-        )
+        candidates = self._candidates(step)
         for i, s in enumerate(candidates):
             if expect_meta is not None:
                 self._check_meta(s, expect_meta)
@@ -303,6 +350,71 @@ class Checkpointer:
                 _copy_into(state_template, payload)
             return state_template
         raise FileNotFoundError(f"No checkpoint found under {self.directory}")
+
+    def _candidates(self, step: Optional[int]) -> List[int]:
+        """The steps a restore tries, in order: ``step`` alone when asked
+        for, else every retained step newest first."""
+        if step is not None:
+            return [int(step)]
+        steps = self.all_steps()[::-1]
+        if not steps:
+            raise FileNotFoundError(f"No checkpoint found under {self.directory}")
+        return steps
+
+    def _restore_sharded(self, state: Any, step: Optional[int], expect_meta: Optional[Dict[str, Any]]) -> Any:
+        """A restore under a mesh: rank 0 picks the step and reads the file
+        (falling back to older steps as :meth:`restore` does) and
+        broadcasts it; every rank keeps its shards and raises what rank 0
+        raised."""
+        import torch.distributed as dist
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
+            set_model_state_dict,
+            set_optimizer_state_dict,
+        )
+
+        from maggy_tpu_torch import telemetry
+        from maggy_tpu_torch.parallel.mesh import from_rank0
+
+        model_sd: Dict[str, Any] = {}
+        optim_sd: Dict[str, Any] = {}
+        status = None
+        if dist.get_rank() == 0:
+            try:
+                candidates = self._candidates(step)
+            except FileNotFoundError as e:
+                candidates, status = [], ("missing", str(e))
+            for i, s in enumerate(candidates):
+                if expect_meta is not None:
+                    self._check_meta(s, expect_meta)
+                try:
+                    payload = self._load(s)
+                    model_sd, optim_sd = _fqn_state_dicts(state, payload)
+                    status = ("ok", int(payload["step"]))
+                    break
+                except Exception as e:  # noqa: BLE001 - unreadable or mismatched: as restore()
+                    if step is not None or i == len(candidates) - 1 or isinstance(e, ValueError):
+                        status = ("error", f"{type(e).__name__}: {e}")
+                        break
+                    telemetry.get().count("checkpoint_fallback")
+                    warnings.warn(
+                        f"checkpoint step {s} under {self.directory} is unreadable ({type(e).__name__}: "
+                        f"{e}); falling back to the previous retained step {candidates[i + 1]}",
+                        stacklevel=3,
+                    )
+        kind, value = from_rank0(status)
+        if kind == "missing":
+            raise FileNotFoundError(value)
+        if kind != "ok":
+            raise ValueError(f"restore failed on rank 0: {value}")
+        # two calls: set_state_dict would read the other ranks' empty model
+        # dict as "optimizer only" and skip the model's broadcast
+        options = StateDictOptions(full_state_dict=True, broadcast_from_rank0=True)
+        with telemetry.get().span("checkpoint_restore", step=value):
+            set_model_state_dict(state.model, model_sd, options=options)
+            set_optimizer_state_dict(state.model, state.optimizer, optim_sd, options=options)
+        state.step = value
+        return state
 
     def restore_params(self, step: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Params-only restore for serving: the saved ``named_parameters()``
@@ -333,6 +445,90 @@ class Checkpointer:
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None
+
+
+def _sharded(model) -> bool:
+    """Whether ``model``'s parameters are laid out on a mesh (DTensors)."""
+    import sys
+
+    dtensor = sys.modules.get("torch.distributed.tensor")  # loaded wherever a DTensor exists
+    return dtensor is not None and any(isinstance(p, dtensor.DTensor) for p in model.parameters())
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _full_payload(step: int, state: Any) -> Optional[Dict[str, Any]]:
+    """The checkpoint of a state laid out on a mesh, in the one-device
+    format: the full parameters in ``named_parameters()`` order and the
+    optimizer's state keyed by parameter index, on the host of rank 0 (the
+    other ranks take part in the gather and get None)."""
+    import torch.distributed as dist
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, get_state_dict
+
+    model_sd, optim_sd = get_state_dict(
+        state.model, state.optimizer, options=StateDictOptions(full_state_dict=True, cpu_offload=True)
+    )
+    if dist.get_rank() != 0:
+        return None
+    names = [name for name, _ in state.model.named_parameters()]
+    index = {name: i for i, name in enumerate(names)}
+    return {
+        "step": int(step),
+        "params": {name: model_sd[name] for name in names},
+        "optimizer": {
+            "state": {index[name]: values for name, values in optim_sd["state"].items()},
+            "param_groups": [
+                {**group, "params": [index[name] for name in group["params"]]}
+                for group in optim_sd["param_groups"]
+            ],
+        },
+    }
+
+
+def _fqn_state_dicts(state: Any, payload: Dict[str, Any]):
+    """A checkpoint's parameters and optimizer state keyed by parameter
+    name, as ``set_state_dict`` takes them; raises ValueError when they do
+    not fit the live model."""
+    names = [name for name, _ in state.model.named_parameters()]
+    saved = payload["params"]
+    if list(saved) != names:
+        missing, extra = set(names) - set(saved), set(saved) - set(names)
+        raise ValueError(
+            f"checkpoint parameters differ from the model's (missing {sorted(missing)}, "
+            f"unexpected {sorted(extra)}, or in another order)"
+        )
+    for name, p in state.model.named_parameters():
+        if tuple(saved[name].shape) != tuple(p.shape):
+            raise ValueError(f"{name}: checkpoint shape {tuple(saved[name].shape)} != {tuple(p.shape)}")
+    osd = payload["optimizer"]
+    optim = {
+        "state": {names[int(i)]: values for i, values in osd["state"].items()},
+        "param_groups": [{**g, "params": [names[int(i)] for i in g["params"]]} for g in osd["param_groups"]],
+    }
+    return dict(saved), optim
+
+
+def _agree_on_commit(err: Optional[BaseException]) -> Optional[BaseException]:
+    """Under a mesh, after a save: rank 0 sends whether its write committed,
+    and every other rank takes rank 0's failure as its own."""
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.parallel.mesh import from_rank0
+
+    rank0 = dist.get_rank() == 0
+    word = from_rank0(f"{type(err).__name__}: {err}" if rank0 and err is not None else None)
+    if rank0 or word is None:
+        return err
+    return RuntimeError(f"rank 0's checkpoint write failed: {word}")
 
 
 @torch.no_grad()
@@ -400,17 +596,29 @@ def restore_zero_compat(
 ) -> Any:
     """Restore a TrainState across ZeRO layouts. Only the dense layout
     (``zero.stage == 0``, saved and live) is ported: then it is exactly
-    :meth:`Checkpointer.restore`. A ZeRO-1 layout on either side raises
-    :class:`NotImplementedError` (ROADMAP queue 1 item 7)."""
+    :meth:`Checkpointer.restore`, under a mesh or not. A ZeRO-1 layout on
+    either side raises :class:`NotImplementedError` (ROADMAP queue 1 item
+    7c)."""
     live_zero = dict((live_meta or {}).get("zero") or _DENSE_ZERO)
-    resolved = int(step) if step is not None else checkpointer.latest_step()
-    saved_meta = checkpointer.saved_meta(resolved) if resolved is not None else None
-    saved_zero = dict((saved_meta or {}).get("zero") or _DENSE_ZERO)
+
+    def saved():
+        resolved = int(step) if step is not None else checkpointer.latest_step()
+        saved_meta = checkpointer.saved_meta(resolved) if resolved is not None else None
+        return dict((saved_meta or {}).get("zero") or _DENSE_ZERO)
+
+    if _sharded(state_template.model):  # rank 0's checkpoint: its answer
+        import torch.distributed as dist
+
+        from maggy_tpu_torch.parallel.mesh import from_rank0
+
+        saved_zero = from_rank0(saved() if dist.get_rank() == 0 else None)
+    else:
+        saved_zero = saved()
     for side, zero in (("saved", saved_zero), ("live", live_zero)):
         if int(zero.get("stage") or 0) != 0:
             raise NotImplementedError(
                 f"the {side} optimizer state has ZeRO stage {zero.get('stage')}; the port "
-                "restores the dense layout only (ZeRO-1 is ROADMAP queue 1 item 7)"
+                "restores the dense layout only (ZeRO-1 is ROADMAP queue 1 item 7c)"
             )
     return checkpointer.restore(state_template, step=step, expect_meta=live_meta)
 

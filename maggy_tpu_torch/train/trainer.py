@@ -1,15 +1,17 @@
-"""Trainer: dense AdamW steps on one card, or sequence-parallel over a ring.
+"""Trainer: AdamW steps on one card, on a mesh of cards, or over a ring.
 
-Counterpart of the dense path of :mod:`maggy_tpu.train.trainer`: the LM and
-classification losses, a ``TrainState``, a ``Trainer`` with ``make_state``,
-``step``, ``eval_logits``, ``evaluate``, ``checkpoint_meta`` and ``fit``
+Counterpart of :mod:`maggy_tpu.train.trainer`: the LM and classification
+losses, a ``TrainState``, a ``Trainer`` with ``make_state``, ``step``,
+``eval_logits``, ``evaluate``, ``checkpoint_meta`` and ``fit``
 (checkpoints, ``resume``, the preemption save, the input prefetcher, the
 profiler window and the telemetry of the JAX ``fit``), and a
-``TrainContext`` for sequence parallelism (``ShardingSpec(sp=n)``), whose
-model attends through :mod:`maggy_tpu_torch.parallel.ringattention`. The
-other mesh axes, pipeline, overlap/ZeRO and elastic membership (ROADMAP
-queue 1 item 7) and the autopilot (item 9) belong to later slices of the
-port.
+``TrainContext``. A context over a ``DeviceMesh`` (``dp``, ``fsdp``,
+``tp``; one process per card) lays the ``Decoder`` out with FSDP2 and
+DTensor tensor parallelism (:mod:`maggy_tpu_torch.parallel.sharding`);
+one for sequence parallelism (``ShardingSpec(sp=n)``) attends through
+:mod:`maggy_tpu_torch.parallel.ringattention`. Pipelines (ROADMAP queue 1
+item 7e), ZeRO-1 and bucketed overlap (7c), elastic membership (7f) and
+the autopilot (item 9) belong to later slices of the port.
 
 Where the JAX step is a pure function returning a new state, ``step``
 updates the parameters and optimizer in place and returns the same state
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
 from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple, Union
@@ -29,8 +32,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from maggy_tpu_torch.parallel import sharding as shd
+from maggy_tpu_torch.parallel.mesh import any_rank, from_rank0, mesh_shape
 from maggy_tpu_torch.parallel.ringattention import LocalRing, ProcessGroupRing
-from maggy_tpu_torch.parallel.spec import ShardingSpec
+from maggy_tpu_torch.parallel.spec import AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, ShardingSpec
 from maggy_tpu_torch.util import resolve_device
 
 Batch = Dict[str, Any]
@@ -125,6 +130,28 @@ def _shard_for(ring, batch: Batch) -> Batch:
     return batch
 
 
+def shard_rows(batch: Batch, mesh) -> Batch:
+    """This rank's rows of a global batch on ``mesh``: the rows split over
+    (``data``, ``fsdp``), ``data`` outer, as JAX's ``batch`` rule places
+    them; ranks that differ only along other axes get the same rows."""
+    shape = mesh_shape(mesh)
+    index, blocks = 0, 1
+    for axis in (AXIS_DATA, AXIS_FSDP):
+        n = shape.get(axis, 1)
+        index = index * n + (mesh.get_local_rank(axis) if n > 1 else 0)
+        blocks *= n
+    out = {}
+    for key, value in batch.items():
+        rows = value.shape[0]
+        if rows % blocks:
+            raise ValueError(
+                f"batch[{key!r}] has {rows} rows, which do not split over the {blocks} (data x fsdp) ranks"
+            )
+        per = rows // blocks
+        out[key] = value[index * per:(index + 1) * per]
+    return out
+
+
 def _chunk_lm_loss_parts(logits: torch.Tensor, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(log-likelihood sum, weight)`` of one chunk from the targets and
     weights :func:`shard_sequence` took from the global batch; summed over
@@ -166,6 +193,32 @@ def _all_reduce_sum(tensors, group, bucket_bytes: int = ALL_REDUCE_BUCKET_BYTES)
         size += nbytes
     if bucket:
         flush(bucket)
+
+
+def _global_norm(grads) -> torch.Tensor:
+    """The L2 norm of every gradient, whole, as a plain tensor equal on
+    every rank: each rank sums the squares of the shards it holds, each
+    divided by the number of ranks holding that shard (a DTensor's
+    replicas, or every rank for a plain tensor), and one all-reduce over
+    the world adds them up."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    total = None
+    for g in grads:
+        copies = world
+        if dtensor is not None and isinstance(g, dtensor.DTensor):
+            for extent, placement in zip(g.device_mesh.mesh.shape, g.placements):
+                if not (placement.is_replicate() or placement.is_partial()):  # Shard, FSDP2's strided shard
+                    copies //= extent
+            g = g.to_local()
+        sq = g.detach().float().square().sum() / copies
+        total = sq if total is None else total + sq
+    if total is None:
+        raise ValueError("no gradients to take the norm of")
+    dist.all_reduce(total)
+    return total.sqrt()
 
 
 def classification_loss_fn(logits: torch.Tensor, batch: Batch) -> torch.Tensor:
@@ -217,20 +270,30 @@ class Trainer:
     :class:`ProcessGroupRing` each process holds one chunk of the sequence
     (:meth:`shard_batch`): the step sums the loss parts and the gradients
     over the group, so the loss is the global masked mean exactly and the
-    replicated parameters stay identical on every rank."""
+    replicated parameters stay identical on every rank.
+
+    ``mesh`` is a ``DeviceMesh`` with the JAX package's axis names
+    (:func:`~maggy_tpu_torch.parallel.mesh.make_mesh`), one process per
+    device: ``make_state`` lays the ``Decoder`` out on it and each rank
+    steps on its rows of the global batch (:meth:`shard_batch`). The loss
+    is the global token-weighted mean, as JAX's over the whole batch: each
+    rank differentiates its log-likelihood sum over the global weight and
+    the gradients are summed, so ranks holding different token weights
+    (packed ``segment_ids``, a ``loss_mask``) are weighted exactly."""
 
     model: nn.Module
     optimizer: Callable[..., torch.optim.Optimizer]
     device: Any = None
     loss_fn: Callable = lm_loss_fn
     ring: Any = None
-    # elastic membership (a MembershipMonitor) is ROADMAP queue 1 item 7
+    # elastic membership (a MembershipMonitor) is ROADMAP queue 1 item 7f
     membership: Optional[Any] = None
+    mesh: Any = None
 
     def __post_init__(self):
         if self.membership is not None:
             raise NotImplementedError(
-                "elastic membership is not ported yet (ROADMAP queue 1 item 7)"
+                "elastic membership is not ported yet (ROADMAP queue 1 item 7f)"
             )
         self.device = resolve_device(self.device)
         if self.ring is not None and not isinstance(self.ring, (LocalRing, ProcessGroupRing)):
@@ -239,32 +302,73 @@ class Trainer:
             raise NotImplementedError(
                 "a ProcessGroupRing trainer trains the LM loss only (its targets cross chunks)"
             )
+        if self.mesh is not None:
+            if self.ring is not None:
+                raise NotImplementedError(
+                    "the ring inside a larger mesh is ROADMAP queue 1 item 7a2, not ported yet"
+                )
+            cfg = getattr(self.model, "cfg", None)
+            if cfg is None or not hasattr(self.model, "layers"):
+                raise NotImplementedError(
+                    f"a mesh lays out the Decoder; {type(self.model).__name__} on a mesh comes with "
+                    "its model family (ROADMAP queue 1 item 8)"
+                )
+            # a head count tp does not divide raises here, before anything
+            # is built, on any device
+            shd.check_tensor_parallel(cfg, self._mesh_shape.get(AXIS_TENSOR, 1))
+        self._layout_memo = None
 
     @property
     def _group_ring(self) -> Optional[ProcessGroupRing]:
         return self.ring if isinstance(self.ring, ProcessGroupRing) else None
 
-    def shard_batch(self, batch: Batch) -> Batch:
-        """This rank's chunk of a global batch under a
-        :class:`ProcessGroupRing` (:func:`shard_sequence`); the batch itself
-        otherwise."""
-        return _shard_for(self.ring, batch)
+    @property
+    def _mesh_shape(self) -> Dict[str, int]:
+        return mesh_shape(self.mesh) if self.mesh is not None else {}
+
+    def shard_batch(self, batch: Batch, *, local: bool = False) -> Batch:
+        """Under a mesh: this rank's rows of a global batch (every rank
+        passes the same batch), or, with ``local=True``, the batch a
+        rank-sharding loader already cut for this rank, as it is. Under a
+        :class:`ProcessGroupRing`: this rank's chunk of the sequence
+        (:func:`shard_sequence`). Otherwise the batch itself."""
+        if self.mesh is None:
+            return _shard_for(self.ring, batch)
+        return batch if local else shard_rows(batch, self.mesh)
+
+    def batch_shardings(self, batch: Batch) -> Dict[str, Tuple]:
+        """Each batch leaf's placement: per dim, the mesh axes that split it
+        (rows over (``data``, ``fsdp``), the rest whole)."""
+        rows = shd.batch_group_axes(self._mesh_shape)
+        return {k: (rows or None,) + (None,) * (np.ndim(v) - 1) for k, v in batch.items()}
 
     def _losses(self, logits: torch.Tensor, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(this rank's term to differentiate, the loss)``. Under a
-        ProcessGroupRing the loss parts are all-reduced: each rank
-        differentiates its own log-likelihood over the global weight."""
+        ProcessGroupRing or a mesh that splits the batch, the loss parts
+        are all-reduced: each rank differentiates its own log-likelihood
+        over the global weight."""
         ring = self._group_ring
-        if ring is None:
+        if ring is not None:
+            if "targets" not in batch:
+                raise ValueError("a ProcessGroupRing step takes Trainer.shard_batch(global_batch)")
+            ll_sum, weight = _chunk_lm_loss_parts(logits, batch)
+            groups = [ring.group]
+        elif self.mesh is not None and shd.batch_group_axes(self._mesh_shape):
+            if self.loss_fn is lm_loss_fn:
+                ll_sum, weight = _lm_loss_parts(logits, batch)
+            else:  # a mean over this rank's rows, weighted by them
+                rows = float(next(iter(batch.values())).shape[0])
+                weight = torch.tensor(rows, device=logits.device)
+                ll_sum = -self.loss_fn(logits, batch) * rows
+            groups = [self.mesh.get_group(a) for a in shd.batch_group_axes(self._mesh_shape)]
+        else:
             loss = self.loss_fn(logits, batch)
             return loss, loss
         import torch.distributed as dist
 
-        if "targets" not in batch:
-            raise ValueError("a ProcessGroupRing step takes Trainer.shard_batch(global_batch)")
-        ll_sum, weight = _chunk_lm_loss_parts(logits, batch)
-        parts = torch.stack([ll_sum.detach(), weight])
-        dist.all_reduce(parts, group=ring.group)
+        parts = torch.stack([ll_sum.detach(), weight.float()])
+        for group in groups:
+            dist.all_reduce(parts, group=group)
         denom = torch.clamp(parts[1], min=1.0)
         return -ll_sum / denom, -parts[0] / denom
 
@@ -279,7 +383,13 @@ class Trainer:
         """Materialise the model on the device and build the optimizer.
         Weights come from ``params`` (a ``state_dict``, e.g. from
         :func:`maggy_tpu_torch.convert.decoder_params_from_flax`) when given,
-        else from the model's ``reset_parameters(generator)``."""
+        else from the model's ``reset_parameters(generator)``.
+
+        Under a mesh every rank materialises the full weights first, from
+        ``params`` or the same seeded generator, so a sharded run starts
+        from exactly the weights of a dense one; only then is the model
+        laid out on the mesh (:func:`~maggy_tpu_torch.parallel.sharding.
+        shard_decoder`) and the optimizer built over the shards."""
         _model_inputs(sample_batch)  # the batch names the model's inputs
         model = self.model
         if any(p.is_meta for p in model.parameters()):
@@ -302,7 +412,52 @@ class Trainer:
             with torch.no_grad():
                 for p in model.parameters():
                     dist.broadcast(p, src, group=ring.group)
+        if self.mesh is not None:
+            shd.shard_decoder(model, self.mesh)
         return TrainState(model, self.optimizer(model.parameters()), 0)
+
+    def state_shardings_for(self, sample_batch: Optional[Batch] = None) -> Dict[str, Tuple]:
+        """Each parameter's layout on the mesh, from the rules and the
+        shapes alone (nothing is allocated): ``{name: per dim, the mesh
+        axes that split it}``; the optimizer's moments follow their
+        parameter. FSDP2 splits dim 0 over ``fsdp`` (``data`` replicates),
+        tensor parallelism the dim the port's rules map to ``tensor``."""
+        if self._layout_memo is not None:
+            return self._layout_memo
+        shape = self._mesh_shape
+        fsdp = self.mesh is not None and shd.fsdp_applies(shape) and shape.get(AXIS_FSDP, 1) > 1
+        out = {}
+        for name, p in self.model.named_parameters():
+            dims = [[] for _ in range(p.dim())]
+            if fsdp and dims:
+                dims[0].append(AXIS_FSDP)
+            if shape.get(AXIS_TENSOR, 1) > 1:
+                for i, axis in enumerate(shd.logical_to_mesh_axes(shd.logical_axes(name))):
+                    if axis == AXIS_TENSOR:
+                        dims[i].append(axis)
+            out[name] = tuple(tuple(d) or None for d in dims)
+        self._layout_memo = out
+        return out
+
+    def adopt_state(self, state: TrainState, sample_batch: Batch) -> TrainState:
+        """Place a foreign state (a dense one, or one restored elsewhere)
+        onto this trainer's layout: its full parameters and optimizer
+        state, sharded here, at its step."""
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
+            get_model_state_dict,
+            get_optimizer_state_dict,
+            set_optimizer_state_dict,
+        )
+
+        # full on every rank: each lays out its own shards from it
+        full = StateDictOptions(full_state_dict=True)
+        params = get_model_state_dict(state.model, options=full)
+        optim = get_optimizer_state_dict(state.model, state.optimizer, options=full)
+        mine = self.make_state(0, sample_batch, params=params)
+        set_optimizer_state_dict(mine.model, mine.optimizer, optim, options=full)
+        mine.step = state.step
+        return mine
 
     def _to_device(self, batch: Batch) -> Dict[str, torch.Tensor]:
         return {
@@ -328,7 +483,7 @@ class Trainer:
         ring = self._group_ring
         if ring is not None:  # the global gradient is the sum of the ranks'
             _all_reduce_sum(grads, ring.group)
-        gnorm = torch.nn.utils.get_total_norm(grads)
+        gnorm = _global_norm(grads) if self.mesh is not None else torch.nn.utils.get_total_norm(grads)
         state.optimizer.step()
         metrics = {
             "loss": loss.detach(),
@@ -400,17 +555,23 @@ class Trainer:
         """The active system configuration, recorded by ``Checkpointer.save``
         beside every state this trainer checkpoints; restores compare it
         with the live trainer's and warn on a mismatch. The keys are the
-        JAX trainer's: the ring's ``sp`` axis (the only mesh axis ported),
-        the devices and processes, no microbatching, the model's compute
-        dtype and the dense ZeRO layout."""
+        JAX trainer's: the mesh's axes of extent above 1 (the ring's ``sp``
+        under a ring), the devices and processes, no microbatching, the
+        model's compute dtype and the dense ZeRO layout."""
         import torch.distributed as dist
 
         ring = self.ring
         sp = ring.size if ring is not None else 1
         cfg = getattr(self.model, "cfg", None)
+        if self.mesh is not None:
+            mesh_axes = {k: v for k, v in self._mesh_shape.items() if v > 1}
+            num_devices = self.mesh.size()
+        else:
+            mesh_axes = {"sp": sp} if sp > 1 else {}
+            num_devices = ring.size if isinstance(ring, ProcessGroupRing) else 1
         return {
-            "mesh_axes": {"sp": sp} if sp > 1 else {},
-            "num_devices": ring.size if isinstance(ring, ProcessGroupRing) else 1,
+            "mesh_axes": mesh_axes,
+            "num_devices": num_devices,
             "n_processes": dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1,
             "n_microbatches": None,
             "dtype": str(getattr(cfg, "dtype", None)) if cfg is not None else None,
@@ -457,6 +618,10 @@ class Trainer:
           :func:`maggy_tpu_torch.resilience.preemption.request`) makes the
           loop take one synchronous save at the current step and return
           early with ``preempted = 1.0``.
+        * Under a mesh every rank calls ``fit`` alike: the checkpoint is
+          rank 0's (``resume="auto"`` takes rank 0's latest step), and a
+          notice on any rank makes every rank save and return at the same
+          step (the flag is reduced over the ranks on the host each step).
         * ``prefetch`` (default 2; ``MAGGY_TPU_PREFETCH`` overrides, 0
           disables): batches flow through a
           :class:`~maggy_tpu_torch.train.prefetch.DevicePrefetcher`, which
@@ -510,6 +675,8 @@ class Trainer:
             if checkpointer is None:
                 raise ValueError("fit(resume=...) requires a checkpointer")
             target = checkpointer.latest_step() if resume == "auto" else int(resume)
+            if self.mesh is not None:  # the checkpoint is rank 0's (Checkpointer)
+                target = from_rank0(target)
             if target is not None and target > state.step:
                 from maggy_tpu_torch.train.checkpoint import restore_zero_compat
 
@@ -579,7 +746,9 @@ class Trainer:
                     # deterministic fault injection: a matching kill rule
                     # raises WorkerLost here
                     chaos.kill(tel.worker, step=step0 + i)
-                if hook is not None and hook.requested():
+                if hook is not None and (
+                    any_rank(hook.requested()) if self.mesh is not None else hook.requested()
+                ):  # under a mesh every rank saves, whichever got the notice
                     checkpointer.save(step0 + i, state, meta=self.checkpoint_meta())
                     checkpointer.wait()
                     tel.count("resilience.preempt_saves")
@@ -680,38 +849,49 @@ def _export_trace(profiler, profile_dir: str) -> str:
 def _require_ring(spec: ShardingSpec) -> None:
     if spec.sp < 2:
         raise ValueError(
-            f"a TrainContext runs sequence parallelism and needs sp > 1, got "
-            f"sp={spec.sp}; train on one device with Trainer directly"
+            f"a local TrainContext runs sequence parallelism and needs sp > 1, got "
+            f"sp={spec.sp}; a mesh spans one process per device (TrainContext.create), "
+            "and one device trains with Trainer directly"
         )
 
 
 @dataclasses.dataclass
 class TrainContext:
-    """What a sequence-parallel ``train_fn`` is handed: the spec, the ring
-    its model attends over, and the device. Counterpart of the JAX
-    package's ``TrainContext`` for ``ShardingSpec(sp=n)``; every other axis
-    raises (ROADMAP queue 1 item 7).
+    """What a distributed ``train_fn`` is handed: the spec, the device, and
+    either the mesh (``dp``, ``fsdp``, ``tp``) or the ring (``sp``) its
+    model trains over. Counterpart of the JAX package's ``TrainContext``.
 
     ``create`` is the multi-card path, one process per rank over an
-    initialised ``torch.distributed`` group; ``local`` runs every rank of
-    the ring in this process (one card, or the CPU in tests). The model
-    names the ring itself:
+    initialised ``torch.distributed`` group (what
+    ``lagom(train_fn, DistributedConfig(...))`` injects as ``ctx``);
+    ``local`` runs every rank of a ring in this process (one card, or the
+    CPU in tests). Under a ring the model names it itself:
     ``DecoderConfig(attention_fn=make_ring_attention(ctx.ring))``."""
 
     spec: ShardingSpec
     ring: Any
     device: torch.device
+    mesh: Any = None
+    process_index: int = 0
+    num_processes: int = 1
+    # "chief" (rank 0) or "worker"; the JAX package's "evaluator" role is
+    # ROADMAP queue 1 item 7f
+    role: str = "worker"
 
     @classmethod
-    def create(cls, spec_or_preset: Union[ShardingSpec, str] = "sp", *, device=None) -> "TrainContext":
-        """A :class:`ProcessGroupRing` over the default process group, whose
-        size must equal ``spec.num_devices``. The device is
-        ``cuda:LOCAL_RANK`` unless one is given (``device="cpu"`` for gloo)."""
-        import os
-
+    def create(cls, spec_or_preset: Union[ShardingSpec, str] = "fsdp", devices=None, role: str = "worker", *,
+               device=None) -> "TrainContext":
+        """A context over the default process group, whose size the spec
+        is scaled to (a preset is resolved against it). ``sp > 1`` builds a
+        :class:`ProcessGroupRing`; any other spec a DeviceMesh
+        (:func:`~maggy_tpu_torch.parallel.mesh.make_mesh`). The device is
+        ``devices[0]`` (this rank's lease), else ``device``, else
+        ``cuda:LOCAL_RANK``; ``device="cpu"`` for gloo ranks."""
         import torch.distributed as dist
 
-        if not dist.is_initialized():
+        from maggy_tpu_torch.parallel.mesh import make_mesh, set_ambient_mesh
+
+        if not dist.is_available() or not dist.is_initialized():
             raise RuntimeError(
                 "TrainContext.create needs an initialised torch.distributed process "
                 "group; use TrainContext.local for a ring inside one process"
@@ -720,12 +900,25 @@ class TrainContext:
         spec = spec_or_preset
         if isinstance(spec, str):
             spec = ShardingSpec.preset(spec, size)
-        _require_ring(spec)
-        if spec.num_devices != size:
-            raise ValueError(f"{spec} needs {spec.num_devices} ranks, the process group has {size}")
+        elif spec.num_devices != size:
+            spec = spec.scaled_to(size)
+        if devices:
+            device = devices[0]
         if device is None:
             device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
-        return cls(spec, ProcessGroupRing(), resolve_device(device))
+        device = resolve_device(device)
+        if role not in ("chief", "worker"):
+            raise NotImplementedError(
+                f"the {role!r} role (the JAX package's evaluator) is ROADMAP queue 1 item 7f, not ported yet"
+            )
+        common = dict(process_index=dist.get_rank(), num_processes=size, role=role)
+        if spec.sp > 1:
+            return cls(spec, ProcessGroupRing(), device, **common)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        mesh = make_mesh(spec, device.type)
+        set_ambient_mesh(mesh)
+        return cls(spec, None, device, mesh=mesh, **common)
 
     @classmethod
     def local(cls, spec: ShardingSpec, device=None) -> "TrainContext":
@@ -733,18 +926,31 @@ class TrainContext:
         _require_ring(spec)
         return cls(spec, LocalRing(spec.sp), resolve_device(device))
 
-    @property
-    def process_index(self) -> int:
-        return self.ring.rank if isinstance(self.ring, ProcessGroupRing) else 0
-
-    @property
-    def num_processes(self) -> int:
-        return self.ring.size if isinstance(self.ring, ProcessGroupRing) else 1
-
-    def trainer(self, model: nn.Module, optimizer, loss_fn: Callable = lm_loss_fn) -> Trainer:
-        return Trainer(model, optimizer, device=self.device, loss_fn=loss_fn, ring=self.ring)
+    def trainer(self, model: nn.Module, optimizer, loss_fn: Callable = lm_loss_fn,
+                n_microbatches: Optional[int] = None, zero_stage: Optional[int] = None,
+                bucket_mb: Optional[float] = None) -> Trainer:
+        if n_microbatches is not None:
+            raise NotImplementedError("microbatched pipelines (n_microbatches) are ROADMAP queue 1 item 7e")
+        if zero_stage or bucket_mb is not None:
+            raise NotImplementedError("ZeRO-1 and bucketed gradient reduction are ROADMAP queue 1 item 7c")
+        return Trainer(model, optimizer, device=self.device, loss_fn=loss_fn, ring=self.ring, mesh=self.mesh)
 
     def shard_batch(self, global_batch: Batch) -> Batch:
-        """Every rank passes the same global batch and gets its own chunk
-        (:func:`shard_sequence`); with a LocalRing, the batch itself."""
+        """Every rank passes the same global batch and gets its own part:
+        its rows under a mesh, its chunk of the sequence under a
+        ProcessGroupRing (:func:`shard_sequence`); with a LocalRing, the
+        batch itself."""
+        if self.mesh is not None:
+            return self.shard(global_batch)
         return _shard_for(self.ring, global_batch)
+
+    def shard(self, tree: Batch, logical_axes=("batch",)) -> Dict[str, torch.Tensor]:
+        """This rank's part of a host batch on its device: rows split over
+        (``data``, ``fsdp``) as the ``batch`` rule places them; only that
+        rule is ported."""
+        if tuple(logical_axes) != ("batch",):
+            raise NotImplementedError(f"TrainContext.shard places the 'batch' rule only, got {logical_axes}")
+        if self.mesh is None:
+            raise ValueError("TrainContext.shard needs a mesh; a ring context shards with shard_batch")
+        rows = shard_rows(tree, self.mesh)
+        return {k: torch.as_tensor(v).to(self.device) for k, v in rows.items()}

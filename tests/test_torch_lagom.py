@@ -24,11 +24,10 @@ import maggy_tpu_torch
 from maggy_tpu import Searchspace as JSpace
 from maggy_tpu import experiment as j_experiment
 from maggy_tpu.config import AblationConfig as JAblationConfig
-from maggy_tpu.config import DistributedConfig as JDistributedConfig
 from maggy_tpu.config import HyperparameterOptConfig as JHPOConfig
 from maggy_tpu.models import MLP as JMLP
 from maggy_tpu_torch import Searchspace, experiment
-from maggy_tpu_torch.config import BaseConfig, HyperparameterOptConfig
+from maggy_tpu_torch.config import BaseConfig, DistributedConfig, HyperparameterOptConfig
 from maggy_tpu_torch.convert import mlp_params_from_flax
 from maggy_tpu_torch.core.driver.base import device_groups
 from maggy_tpu_torch.exceptions import BroadcastMetricTypeError
@@ -349,8 +348,9 @@ def test_device_groups():
 @pytest.mark.parametrize(
     "make, match",
     [
-        # the JAX package's config kinds the port lacks, refused by name
-        (lambda: JDistributedConfig.__new__(JDistributedConfig), "item 7"),
+        # what of the distributed kind the port lacks (elastic membership,
+        # item 7f), refused by name
+        (lambda: DistributedConfig(device="cpu", elastic=True), "item 7f"),
         (lambda: HyperparameterOptConfig(num_trials=1, optimizer="randomsearch", searchspace=_space(Searchspace),
                                          device="cpu", driver_addr="localhost:1"), "item 7"),
     ],

@@ -178,7 +178,28 @@ Phases, each printing one line:
             (each gradient gathered whole) within 2e-2 of its, and the
             trainer's grad norm within 1e-5 of the groups', the launches as there; budget 150 s. With one card
             it reports ``"ran": false`` beside the kernel times.
-15. train.resume  the ``train`` configuration from disk: seeded tokens
+15. dist.seq  the flash kernels at Ulysses' local shape of ``ring.train``
+            (B=1, S=8192, sp=4: 8 query and 2 KV heads, D=128, causal; never
+            run as one chunk before) against their plain versions, timed
+            beside their bounds, SDPA and the plain versions, on any number
+            of cards. With four cards, one process per card over NCCL, the
+            ``train`` configuration from ``dist.lagom``'s weights and
+            batches under ring attention over the mesh's ``seq`` axis at
+            sp=2 x fsdp=2 and sp=2 x tp=2, and Ulysses
+            (``make_ulysses_attention``) at sp=4 and sp=2 x dp=2: every
+            rank held to dist.lagom's single rank under dist.mesh's limits,
+            the ring launches exact for the rank's chunk (chunk r runs r + 1
+            steps of the causal ring) and Ulysses' flash launches as
+            ``train``'s; budget 150 s. With fewer cards ``"ran": false``
+            beside the kernel times.
+16. dist.zero  with two or more cards, dp=2 dense, bucketed
+            (``bucket_mb=64``) and ZeRO-1 (``zero_stage=1, bucket_mb=64``),
+            and dp=4 ZeRO-1 on four: every rank held to dist.lagom's single
+            rank alike, the trainer's resolved mode, the flash launches,
+            and ZeRO-1's optimizer bytes a rank at most the dense layout's
+            / dp + 10 %; each mode's step and peak beside dense dp=2's;
+            budget 120 s. With one card ``"ran": false``.
+17. train.resume  the ``train`` configuration from disk: seeded tokens
             written by ``write_sharded`` into a temporary directory, read
             through ``ShardedDataset`` and the native batcher (it must be
             native) into ``fit``'s prefetcher (depth 2). Run A takes 8
@@ -195,7 +216,7 @@ Phases, each printing one line:
             checkpoints. It prints the bytes a checkpoint, each save's
             blocked and commit time, the restore time, the step through
             the prefetcher and ``input_wait_ms``.
-16. train.remat  one forward and backward of the ``train`` configuration on
+18. train.remat  one forward and backward of the ``train`` configuration on
             one batch under ``remat=False``, ``"nothing"``, ``"dots"`` and
             ``"dots_attn"``, from the same parameters, gradients cleared
             between them: the loss and every gradient equal to
@@ -204,8 +225,8 @@ Phases, each printing one line:
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches: those of
 ``train``, ``ring.train``, ``lagom.ablation``'s Decoder study,
-``dist.lagom``'s rank, ``dist.mesh``'s rank 0, ``train.resume`` and
-``train.remat``), the card's name and power limit, and as
+``dist.lagom``'s rank, rank 0 of ``dist.mesh``, ``dist.seq`` and
+``dist.zero``, ``train.resume`` and ``train.remat``), the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before that line. With no CUDA it exits non-zero at once.
 """
@@ -357,6 +378,19 @@ TOL_MESH_GRAD_NORM_REL = 2e-3
 TOL_MESH_GROUP_NORM_REL = 2e-2
 TOL_GRAD_NORM_COUNT_REL = 1e-5
 DIST_MESH_BUDGET_S = 150
+# dist.seq: with four cards, the seq axis inside the mesh (the ring over
+# sp=2 x fsdp=2 and sp=2 x tp=2, Ulysses over sp=4 and sp=2 x dp=2), the
+# same steps from the same weights, every rank held to dist.lagom's single
+# rank under dist.mesh's limits; on any number of cards the flash kernels
+# at Ulysses' local shape of ring.train (B=1, S=8192, sp=4: 8 and 2 heads)
+DIST_SEQ_BUDGET_S = 150
+# dist.zero: with two or more cards dp=2 dense, bucketed and ZeRO-1 (dp=4
+# ZeRO-1 on four), held alike; ZeRO-1's optimizer bytes a rank at most the
+# dense layout's / dp, plus ZERO_BYTES_MARGIN (JAX's test: the bucket
+# padding and the step counters)
+DIST_ZERO_BUDGET_S = 120
+ZERO_BUCKET_MB = 64
+ZERO_BYTES_MARGIN = 0.10
 # train.resume: the `train` configuration from ROWS rows of tokens written as
 # SHARDS shards; run A takes STEPS steps, run B checkpoints every EVERY steps
 # until a preemption notice after step NOTICE, run C resumes it. A checkpoint
@@ -2925,17 +2959,38 @@ def phase_lagom_ablation(torch, bert_cfg, dec_cfg, seq: int, steps: int, card: s
     return launches
 
 
-def grad_norms_by_group(model) -> dict:
+def zero_grads(torch, layout) -> dict:
+    """A ZeRO-1 state's gradients gathered whole: each bucket's
+    reduce-scattered shards all-gathered over ``data`` and cut into its
+    parameters, by name. Every rank must call it."""
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.parallel import overlap
+
+    flats = {}
+    for b, shard in zip(layout.plan.buckets, layout.grads.out):
+        full = torch.empty(b.padded_size, dtype=shard.dtype, device=shard.device)
+        overlap.all_gather_flat(dist)(full, shard, group=layout.group)
+        flats[b.name] = full
+    return dict(zip(layout.names, overlap.unflatten_buckets(flats, layout.plan, list(layout.names))))
+
+
+def grad_norms_by_group(model, state=None) -> dict:
     """The L2 norm of each group of the model's gradients (the norm scales,
     the embedding, attention, the MLP, ``lm_head``), every gradient
-    gathered whole (``full_tensor``) on every rank and summed there: a
-    count of its own, apart from the trainer's sharded norm. Every rank
-    must call it."""
+    gathered whole (``full_tensor``; a ZeRO-1 state's from its shards) on
+    every rank and summed there: a count of its own, apart from the
+    trainer's sharded norm. Every rank must call it."""
+    import torch
+
+    layout = getattr(state, "layout", None)
+    whole = zero_grads(torch, layout) if layout is not None and layout.zero is not None else None
     sums = {}
     for name, p in model.named_parameters():
-        if p.grad is None:
+        g = whole[name] if whole is not None else p.grad
+        if g is None:
             continue
-        g = p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad
+        g = g.full_tensor() if hasattr(g, "full_tensor") else g
         group = "norm" if name.endswith("scale") else next(k for k in ("embedding", "attn", "mlp", "lm_head")
                                                             if k in name)
         sums[group] = sums.get(group, 0.0) + float(g.float().square().sum())
@@ -2943,27 +2998,41 @@ def grad_norms_by_group(model) -> dict:
     return {k: math.sqrt(v) for k, v in sums.items()}
 
 
-def mesh_steps(ctx, model, steps: int, seq: int, reporter=None) -> dict:
+def mesh_steps(ctx, model, steps: int, seq: int, reporter=None, rows_repeat: int = 1, **trainer_kw) -> dict:
     """The ``train`` phase's steps on a rank of ``ctx``'s mesh: its weights
     (seed 0) and batches, a one-step warm-up fit, then ``steps`` fit steps
     (prefetch 2, every loss broadcast). Each rank passes the global batch;
-    fit takes its rows. Returns the losses, the grad norms, the warm-up
-    step's norm of each gradient group (:func:`grad_norms_by_group`) and
-    how far the trainer's grad norm lies from theirs, the mean step, the
-    peak memory and the flash launches of both fits."""
+    fit takes its rows (and their chunk of the sequence under ``seq``).
+    ``rows_repeat`` > 1 stacks each batch's B rows that many times, so a
+    mesh of more batch ranks than rows gets a row each: the token-weighted
+    mean over repeated rows, and its gradient, are the B rows' own.
+    ``trainer_kw`` goes to ``ctx.trainer`` (``zero_stage``, ``bucket_mb``).
+    Returns the losses, the grad norms, the warm-up step's norm of each
+    gradient group (:func:`grad_norms_by_group`) and how far the trainer's
+    grad norm lies from theirs, the mean step, the peak memory, the
+    optimizer's bytes on this rank, the overlap mode, and the flash and
+    ring launches of both fits."""
     import torch
 
     from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.ops import ring_flash as rf
+    from maggy_tpu_torch.parallel import overlap
     from maggy_tpu_torch.train import adamw, synthetic_lm_batches
 
-    trainer = ctx.trainer(model, adamw(1e-4))
+    import numpy as np
+
+    trainer = ctx.trainer(model, adamw(1e-4), **trainer_kw)
     data = synthetic_lm_batches(model.cfg.vocab_size, B, seq, seed=0)
+    if rows_repeat > 1:
+        data = ({k: np.concatenate([v] * rows_repeat) for k, v in batch.items()} for batch in data)
     state = trainer.make_state(0, next(data))
     flash.reset_launches()
+    rf.reset_launches()
     state, warm = trainer.fit(state, data, 1)
-    groups = grad_norms_by_group(state.model)  # the warm-up step's gradients, still held
+    groups = grad_norms_by_group(state.model, state)  # the warm-up step's gradients, still held
     whole = math.sqrt(sum(v * v for v in groups.values()))
     torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated() / 2**30  # what a state holds between steps
     torch.cuda.reset_peak_memory_stats()
     losses = []
 
@@ -2980,7 +3049,9 @@ def mesh_steps(ctx, model, steps: int, seq: int, reporter=None) -> dict:
                 params_on_card=on_card, group_grad_norms=groups,
                 grad_norm_count_rel=_rel(warm["grad_norm"], whole),
                 last_grad_norm=metrics["grad_norm"], step_ms=1e3 / metrics["steps_per_sec"],
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=dict(flash.LAUNCHES),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, state_gib=state_gib,
+                launches=dict(flash.LAUNCHES), ring_launches=dict(rf.LAUNCHES), opt_bytes=overlap.opt_state_bytes_per_device(state),
+                mode=trainer._overlap_mode()[0], seq_rank=ctx.mesh.get_local_rank("seq"),
                 device=str(ctx.device), mesh={k: v for k, v in zip(ctx.mesh.mesh_dim_names, ctx.mesh.mesh.shape)
                                               if v > 1})
 
@@ -3065,10 +3136,18 @@ def tp_local_kernels(torch, tp: int) -> dict:
     32 query and 8 KV heads over ``tp``) on the ``train`` shapes: each
     against its plain version (the ``kernels`` tolerances), its time beside
     its bound, the plain version's and SDPA's."""
+    return local_flash_kernels(torch, B, S, H // tp, KH // tp, seed=tp)
+
+
+def local_flash_kernels(torch, b: int, s: int, h: int, kh: int, seed: int) -> dict:
+    """The flash kernels at one rank's local shape (``b`` rows of ``s``
+    tokens, ``h`` query and ``kh`` KV heads, D=128, causal): each against
+    its plain version (the ``kernels`` tolerances), its time beside its
+    bound, the plain version's and SDPA's."""
     from maggy_tpu_torch.ops import flash
 
-    h, kh = H // tp, KH // tp
-    gen = torch.Generator(device="cuda").manual_seed(tp)
+    B, S = b, s  # noqa: N806 - the module's shape names, at this rank's shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -3234,6 +3313,210 @@ def phase_dist_mesh(torch, n_layers: int, seq: int, steps: int, card: str, singl
     return launches
 
 
+def _spec_rank(rank: int, n: int, port: int, specs, n_layers: int, seq: int, steps: int, out) -> None:
+    """One rank of ``dist.seq`` or ``dist.zero``: its own card, NCCL, then
+    each spec's steps in turn. ``specs`` holds ``(key, ShardingSpec
+    fields, attention, trainer keywords)``; the attention is ``"ring"``
+    (over the mesh's ``seq`` axis), ``"ulysses"`` or None (the flash
+    kernels). Puts (rank, results) or (rank, "error", traceback)."""
+    import gc
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        os.environ["LOCAL_RANK"] = str(rank)
+        torch.cuda.set_device(rank)
+        sys.path.insert(0, REPO)
+        from maggy_tpu_torch.models import Decoder, DecoderConfig
+        from maggy_tpu_torch.parallel import ShardingSpec, make_ring_attention, make_ulysses_attention
+        from maggy_tpu_torch.train import TrainContext
+
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=rank, world_size=n,
+                                device_id=torch.device("cuda", rank))
+        results = {}
+        for key, kw, attention, trainer_kw in specs:
+            t0 = time.perf_counter()
+            ctx = TrainContext.create(ShardingSpec(**kw))
+            attn = {"ring": make_ring_attention, "ulysses": make_ulysses_attention}.get(attention)
+            cfg = DecoderConfig.llama3_8b(n_layers=n_layers, attention_fn=None if attn is None else attn(ctx.mesh))
+            results[key] = mesh_steps(ctx, Decoder(cfg, device="meta"), steps, seq, **trainer_kw)
+            results[key]["spec_s"] = time.perf_counter() - t0
+            del ctx
+            gc.collect()
+            torch.cuda.empty_cache()
+        out.put((rank, results))
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_spec_groups(phase: str, groups, n_layers: int, seq: int, steps: int, t0: float, budget_s: float):
+    """Each ``(n, specs)`` of ``groups`` as n spawned NCCL ranks
+    (:func:`_spec_rank`), every wait inside the phase's budget; a failed
+    rank fails the phase. Returns ``[(spec key, rank, result)]``."""
+    import multiprocessing
+    import socket
+
+    mp = multiprocessing.get_context("spawn")
+    rows = []
+    for n, specs in groups:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        out = mp.Queue()
+        procs = [mp.Process(target=_spec_rank, args=(r, n, port, specs, n_layers, seq, steps, out))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        try:
+            left = max(1.0, budget_s - (time.perf_counter() - t0))
+            results = sorted((out.get(timeout=left) for _ in range(n)), key=lambda r: r[0])
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        failed = [r for r in results if r[1] == "error"]
+        if failed:
+            raise SystemExit(f"{phase}: rank {failed[0][0]} failed:\n{failed[0][2]}")
+        rows += [(key, rank, res) for rank, per_spec in results for key, res in per_spec.items()]
+        print(f"chip_smoke: {phase} group of {n} ranks done at {time.perf_counter() - t0:.1f} s of the phase",
+              file=sys.stderr, flush=True)
+    return rows
+
+
+def held_to_single(res: dict, single: dict) -> dict:
+    """A mesh rank's figures against dist.lagom's single rank, under
+    dist.mesh's limits."""
+    loss_rel = max(_rel(g, w) for g, w in zip(res["losses"], single["losses"]))
+    norm_rel = max(_rel(res["first_grad_norm"], single["first_grad_norm"]),
+                   _rel(res["last_grad_norm"], single["last_grad_norm"]))
+    group_rel = {k: _rel(v, single["group_grad_norms"][k]) for k, v in res["group_grad_norms"].items()}
+    ok = (loss_rel <= TOL_MESH_LOSS_REL and norm_rel <= TOL_MESH_GRAD_NORM_REL
+          and set(group_rel) == set(single["group_grad_norms"])
+          and max(group_rel.values()) <= TOL_MESH_GROUP_NORM_REL
+          and res["grad_norm_count_rel"] <= TOL_GRAD_NORM_COUNT_REL
+          and len(res["losses"]) == len(single["losses"]) and res["params_on_card"])
+    return dict(ok=ok, loss_rel=loss_rel, grad_norm_rel=norm_rel, group_grad_norm_rel=group_rel,
+                grad_norm_count_rel=res["grad_norm_count_rel"], spec_s=res["spec_s"], step_ms=res["step_ms"],
+                ratio_to_single=res["step_ms"] / single["step_ms"], peak_gib=res["peak_gib"], mesh=res["mesh"])
+
+
+def ring_launches_per_step(n_layers: int, seq_rank: int) -> dict:
+    """What one train step launches on the rank holding chunk ``seq_rank``
+    of a causal ring: that many past chunks and its diagonal, the forward
+    again under remat."""
+    visits = seq_rank + 1
+    return {"ring_fwd": 2 * n_layers * visits, "ring_bwd_dq": n_layers * visits, "ring_bwd_dkv": n_layers * visits}
+
+
+def phase_dist_seq(torch, n_layers: int, seq: int, steps: int, card: str, single: dict) -> dict:
+    """The seq axis inside the mesh, each rank against dist.lagom's single
+    rank; and, on any number of cards, the flash kernels at Ulysses' local
+    shape of ``ring.train``. Returns rank 0's launches, summed over the
+    specs."""
+    t0 = time.perf_counter()
+    sp = RING_N
+    local = local_flash_kernels(torch, RING_B, RING_S, H // sp, KH // sp, seed=sp)
+    cards = torch.cuda.device_count()
+    common = dict(ulysses_local_kernels=dict(shape=dict(b=RING_B, s=RING_S, sp=sp), **local),
+                  kernels_s=time.perf_counter() - t0, card=card)
+    if not local["ok"]:
+        emit("dist.seq", ok=False, ran=False, cards=cards, **common)
+        raise SystemExit("dist.seq failed: a flash kernel at Ulysses' local shape disagrees with its plain version")
+    if cards < 4:
+        emit("dist.seq", ok=True, ran=False, cards=cards, **common)
+        return {}
+    specs = [("ring_sp2_fsdp2", dict(sp=2, fsdp=2), "ring", {}),
+             ("ring_sp2_tp2", dict(sp=2, tp=2), "ring", {}),
+             ("ulysses_sp4", dict(sp=4), "ulysses", {}),
+             ("ulysses_sp2_dp2", dict(sp=2, dp=2), "ulysses", {})]
+    flash_step = flash_launches_per_step(n_layers)
+    rows, launches = [], {}
+    for key, rank, res in run_spec_groups("dist.seq", [(4, specs)], n_layers, seq, steps, t0, DIST_SEQ_BUDGET_S):
+        ring = key.startswith("ring")
+        want_flash = {k: 0 if ring else (1 + steps) * v for k, v in flash_step.items()}
+        want_ring = {k: (1 + steps) * v if ring else 0
+                     for k, v in ring_launches_per_step(n_layers, res["seq_rank"]).items()}
+        row = held_to_single(res, single)
+        row.update(spec=key, rank=rank, seq_rank=res["seq_rank"], launches={**res["launches"], **res["ring_launches"]},
+                   expected_launches={**want_flash, **want_ring})
+        row["ok"] = row["ok"] and res["launches"] == want_flash and res["ring_launches"] == want_ring
+        rows.append(row)
+        if rank == 0:
+            for name, count in row["launches"].items():
+                launches[name] = launches.get(name, 0) + count
+    phase_s = time.perf_counter() - t0
+    ok = all(r["ok"] for r in rows) and phase_s <= DIST_SEQ_BUDGET_S
+    emit("dist.seq", ok=ok, ran=True, cards=cards, ranks=rows,
+         tol=dict(loss_rel=TOL_MESH_LOSS_REL, grad_norm_rel=TOL_MESH_GRAD_NORM_REL,
+                  group_grad_norm_rel=TOL_MESH_GROUP_NORM_REL, grad_norm_count_rel=TOL_GRAD_NORM_COUNT_REL),
+         phase_s=phase_s, budget_s=DIST_SEQ_BUDGET_S, **common)
+    if not ok:
+        raise SystemExit("dist.seq failed: a rank's losses, grad norms (whole, by group, or as its trainer counts "
+                         "them) or ring and flash launches disagree with dist.lagom's single rank, or the phase ran "
+                         "past its budget")
+    return launches
+
+
+def phase_dist_zero(torch, n_layers: int, seq: int, steps: int, card: str, single: dict) -> dict:
+    """ZeRO-1 and bucketed reduction over ``data``, each rank against
+    dist.lagom's single rank, the optimizer's bytes a rank against the dense
+    layout's. Returns rank 0's flash launches, summed over the modes."""
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("dist.zero", ok=True, ran=False, cards=cards, card=card)
+        return {}
+    groups = [(2, [("dense_dp2", dict(dp=2), None, {}),
+                   ("bucket_dp2", dict(dp=2), None, dict(bucket_mb=ZERO_BUCKET_MB)),
+                   ("zero_dp2", dict(dp=2), None, dict(zero_stage=1, bucket_mb=ZERO_BUCKET_MB))])]
+    if cards >= 4:
+        # B=2 rows over 4 data ranks: each batch's rows twice, a row a rank
+        groups.append((4, [("zero_dp4", dict(dp=4), None,
+                            dict(zero_stage=1, bucket_mb=ZERO_BUCKET_MB, rows_repeat=2))]))
+    results = run_spec_groups("dist.zero", groups, n_layers, seq, steps, t0, DIST_ZERO_BUDGET_S)
+    dense = {rank: res for key, rank, res in results if key == "dense_dp2"}
+    dense_step = statistics.mean(r["step_ms"] for r in dense.values())
+    dense_peak = max(r["peak_gib"] for r in dense.values())
+    dense_bytes = dense[0]["opt_bytes"]
+    expected = {k: (1 + steps) * v for k, v in flash_launches_per_step(n_layers).items()}
+    rows, launches = [], {}
+    for key, rank, res in results:
+        dp = res["mesh"]["data"]
+        want_mode = key.split("_")[0].replace("dense", "off")
+        row = held_to_single(res, single)
+        bytes_limit = dense_bytes / dp * (1 + ZERO_BYTES_MARGIN) if want_mode == "zero" else None
+        row.update(spec=key, rank=rank, mode=res["mode"], state_gib=res["state_gib"], opt_bytes=res["opt_bytes"],
+                   opt_bytes_limit=bytes_limit,
+                   step_ms_over_dense_dp2=res["step_ms"] / dense_step, launches=res["launches"])
+        row["ok"] = (row["ok"] and res["mode"] == want_mode and res["launches"] == expected
+                     and (bytes_limit is None or res["opt_bytes"] <= bytes_limit))
+        rows.append(row)
+        if rank == 0:
+            for name, count in res["launches"].items():
+                launches[name] = launches.get(name, 0) + count
+    phase_s = time.perf_counter() - t0
+    ok = all(r["ok"] for r in rows) and phase_s <= DIST_ZERO_BUDGET_S
+    emit("dist.zero", ok=ok, ran=True, cards=cards, ranks=rows, dense_dp2_step_ms=dense_step,
+         dense_dp2_peak_gib=dense_peak, dense_opt_bytes=dense_bytes, bucket_mb=ZERO_BUCKET_MB,
+         expected_launches=expected,
+         tol=dict(loss_rel=TOL_MESH_LOSS_REL, grad_norm_rel=TOL_MESH_GRAD_NORM_REL,
+                  group_grad_norm_rel=TOL_MESH_GROUP_NORM_REL, grad_norm_count_rel=TOL_GRAD_NORM_COUNT_REL,
+                  opt_bytes_margin=ZERO_BYTES_MARGIN),
+         phase_s=phase_s, budget_s=DIST_ZERO_BUDGET_S, card=card)
+    if not ok:
+        raise SystemExit("dist.zero failed: a rank's losses, grad norms, mode, launches or optimizer bytes disagree "
+                         "with dist.lagom's single rank and the dense layout, or the phase ran past its budget")
+    return launches
+
+
 def _category(name: str) -> str:
     low = name.lower()
     # the three attention kernels, whether a flash or a ring wrapper launched them
@@ -3382,10 +3665,14 @@ def main(argv=None) -> int:
     cfg = DecoderConfig.llama3_8b(n_layers=N_LAYERS)
     single = phase_dist_lagom(torch, cfg, S, TRAIN_STEPS, card, train_ref, train_step_ms)
     mesh_launches = phase_dist_mesh(torch, N_LAYERS, S, TRAIN_STEPS, card, single)
+    # the seq axis inside the mesh (ring and Ulysses), then ZeRO-1 and the
+    # bucketed reduction over data, each rank held to the single rank
+    seq_launches = phase_dist_seq(torch, N_LAYERS, S, TRAIN_STEPS, card, single)
+    zero_launches = phase_dist_zero(torch, N_LAYERS, S, TRAIN_STEPS, card, single)
     # the rest of the Trainer: checkpoints, the preemption save and resume
     # from sharded data, then the remat policies; their flash launches join
     # the `train` phase's in the kernels line
-    for more in (ablation_launches, single["launches"], mesh_launches,
+    for more in (ablation_launches, single["launches"], mesh_launches, seq_launches, zero_launches,
                  phase_train_resume(torch, cfg, S, card, train_peak, train_step_ms),
                  phase_train_remat(torch, cfg, S, card)):
         for name, n in more.items():

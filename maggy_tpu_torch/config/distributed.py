@@ -6,9 +6,11 @@ The config declares a sharding layout (a
 ``lagom`` runs one process per CUDA card, each an NCCL rank on a mesh of
 that layout (``device="cpu"``: gloo ranks on the CPU). ``zero_lvl`` maps
 onto the layouts as in JAX: 0 → dp, 2 or 3 → fsdp, 1 → dp with
-``zero_stage=1``, which is ROADMAP queue 1 item 7c and raises, as do
-``bucket_mb`` (7c) and the pod, elastic, restart and evaluator options
-and ``data_plane="local"`` and ``min_slices > 1`` (7f).
+``zero_stage=1`` (ZeRO-1 over ``data``); ``zero_stage`` and ``bucket_mb``
+are stamped onto the resolved spec, whose trainer they configure
+(:meth:`~maggy_tpu_torch.train.TrainContext.trainer`). The pod, elastic,
+restart and evaluator options and ``data_plane="local"`` and
+``min_slices > 1`` raise, naming ROADMAP queue 1 item 7f.
 """
 
 from __future__ import annotations
@@ -88,10 +90,8 @@ class DistributedConfig(LagomConfig):
                 zero_stage = 1
         if zero_stage is not None and zero_stage not in (0, 1):
             raise ValueError("zero_stage must be 0 or 1")
-        if zero_stage == 1:
-            _refuse("ZeRO-1 (zero_stage=1, zero_lvl=1)", "7c")
-        if bucket_mb is not None:
-            _refuse("bucketed gradient reduction (bucket_mb)", "7c")
+        if bucket_mb is not None and not float(bucket_mb) > 0:
+            raise ValueError("bucket_mb must be positive (or None)")
         self.zero_stage = zero_stage
         self.bucket_mb = bucket_mb
         self.sharding = sharding
@@ -150,4 +150,6 @@ class DistributedConfig(LagomConfig):
         overrides = {}
         if self.zero_stage is not None:
             overrides["zero_stage"] = int(self.zero_stage)
+        if self.bucket_mb is not None:
+            overrides["bucket_mb"] = float(self.bucket_mb)
         return dataclasses.replace(spec, **overrides) if overrides else spec

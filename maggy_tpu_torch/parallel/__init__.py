@@ -1,5 +1,6 @@
 """Parallelism: the sharding spec, the device mesh and its placement rules,
-and sequence-parallel ring attention.
+sequence parallelism (ring and Ulysses attention), and the bucketed and
+ZeRO-1 gradient reduction (:mod:`~maggy_tpu_torch.parallel.overlap`).
 
 Importing this package starts no process group and loads no CUDA library.
 """
@@ -13,6 +14,7 @@ from maggy_tpu_torch.parallel.ringattention import (
 )
 from maggy_tpu_torch.parallel.sharding import DEFAULT_RULES, PORT_RULES, logical_to_mesh_axes, shard_decoder
 from maggy_tpu_torch.parallel.spec import AXIS_SEQ, MESH_AXES, ShardingSpec, SliceTopology
+from maggy_tpu_torch.parallel.ulysses import make_ulysses_attention, ulysses_attention
 
 __all__ = [
     "AXIS_SEQ",
@@ -27,7 +29,9 @@ __all__ = [
     "logical_to_mesh_axes",
     "make_mesh",
     "make_ring_attention",
+    "make_ulysses_attention",
     "mesh_for",
     "ring_attention",
     "shard_decoder",
+    "ulysses_attention",
 ]

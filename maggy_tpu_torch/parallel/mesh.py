@@ -8,6 +8,10 @@ device, so the mesh is built over an initialised default process group:
 NCCL with one card per rank, or gloo on the CPU. Axes of extent 1 stay in
 the mesh, as in JAX, so ``mesh["fsdp"]`` always names a dimension.
 
+The ``seq`` and ``data`` axes each have a process group of their own
+(:func:`seq_group`, :func:`data_group`): ring and Ulysses attention run
+over the first, the bucketed and ZeRO-1 reductions over the second.
+
 Host-side agreement (:func:`any_rank`, :func:`from_rank0`) runs over a gloo
 twin of the default group (:func:`host_group`), so a flag or a step number
 crosses the ranks without waiting for the card.
@@ -20,7 +24,7 @@ from typing import Optional, Union
 
 import torch
 
-from maggy_tpu_torch.parallel.spec import MESH_AXES, ShardingSpec
+from maggy_tpu_torch.parallel.spec import AXIS_DATA, AXIS_SEQ, MESH_AXES, ShardingSpec
 
 _ambient = threading.local()
 # how long a rank waits for its peers at each collective before NCCL or gloo
@@ -83,6 +87,18 @@ def set_ambient_mesh(mesh) -> None:
 def mesh_shape(mesh) -> dict:
     """``{axis name: extent}`` of a DeviceMesh, in its order."""
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def seq_group(mesh):
+    """The process group of this rank's ranks along ``seq``: those holding
+    the other chunks of its sequence, in chunk order."""
+    return mesh.get_group(AXIS_SEQ)
+
+
+def data_group(mesh):
+    """The process group of this rank's ranks along ``data``: the replicas
+    a bucket's gradients are summed over."""
+    return mesh.get_group(AXIS_DATA)
 
 
 def host_group():

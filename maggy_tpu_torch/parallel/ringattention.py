@@ -14,7 +14,8 @@ The compute of a step is :mod:`maggy_tpu_torch.ops.ring_flash` (the CUDA
 kernels, or their plain versions on the CPU). The transport is the ring's:
 
 * :class:`ProcessGroupRing` is the multi-card path: one process per rank,
-  each holding its chunk. KV (and its segment ids) is sent to rank+1 and
+  each holding its chunk, over a process group (the default one, or the
+  ``seq`` axis of a mesh: :meth:`ProcessGroupRing.over_mesh`). KV (and its segment ids) is sent to rank+1 and
   received from rank-1 with ``torch.distributed.batch_isend_irecv`` on a
   side CUDA stream, double-buffered and issued before the step's compute so
   that the two overlap; in the backward dK/dV travel after the compute.
@@ -133,6 +134,14 @@ class ProcessGroupRing:
         self.right = dist.get_global_rank(group, (self.rank + 1) % self.size) if group else (self.rank + 1) % self.size
         self.left = dist.get_global_rank(group, (self.rank - 1) % self.size) if group else (self.rank - 1) % self.size
         self._side = {}
+
+    @classmethod
+    def over_mesh(cls, mesh) -> "ProcessGroupRing":
+        """The ring over ``mesh``'s ``seq`` axis: this rank and the ranks
+        that differ from it only there, in chunk order."""
+        from maggy_tpu_torch.parallel.mesh import seq_group
+
+        return cls(seq_group(mesh))
 
     def visits(self, my: int, causal: bool):
         return _visits(my, self.size, causal)
@@ -273,7 +282,11 @@ def ring_attention(
 
 def make_ring_attention(ring):
     """An ``attention_fn`` for ``DecoderConfig`` over ``ring``, with the
-    signature of ``default_attention``."""
+    signature of ``default_attention``. ``ring`` is a :class:`LocalRing`,
+    a :class:`ProcessGroupRing`, or a ``DeviceMesh``, whose ``seq`` axis
+    the ring runs over (as JAX's ``make_ring_attention(mesh, "seq")``)."""
+    if hasattr(ring, "mesh_dim_names"):
+        ring = ProcessGroupRing.over_mesh(ring)
     if not isinstance(ring, (LocalRing, ProcessGroupRing)):
         raise TypeError(
             f"ring must be a LocalRing or a ProcessGroupRing, got {type(ring).__name__}"

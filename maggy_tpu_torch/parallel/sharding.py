@@ -19,6 +19,13 @@ rules map them to mesh axes, and :func:`shard_decoder` lays the model out:
   on a one-rank mesh too (its ``fsdp`` axis at extent 1), but not under
   ``tp`` alone.
   Gradients are reduced as a sum, not FSDP2's mean (see ``Trainer.step``).
+* ``seq`` lays out no parameter: they are replicated over it (as JAX's
+  rules replicate them), each ``seq`` rank differentiates its chunk of
+  the sequence, and ``Trainer.step`` sums the gradients over the ``seq``
+  group after the backward, on top of FSDP2's reduction.
+* On a pure ``data`` mesh whose trainer runs the bucketed or ZeRO-1 step
+  (:mod:`~maggy_tpu_torch.parallel.overlap`) :func:`shard_decoder` is not
+  called: the trainer reduces the gradients over ``data`` itself.
 
 Two deliberate divergences from the JAX layout (ROADMAP "Deliberate
 divergences"): ``wk``/``wv`` are column-parallel too (``kv`` maps to

@@ -4,12 +4,12 @@
 Own copy of :mod:`maggy_tpu.parallel.spec` (the port imports nothing of the
 JAX package). A spec declares the mesh the JAX package lays out over six
 axes (pipeline stage, data, fsdp, expert, sequence, tensor); the port runs
-``dp``, ``fsdp`` and ``tp`` on a ``torch.distributed`` ``DeviceMesh`` (one
-rank per card) and ``sp`` over the ring. What it does not run yet raises
-``NotImplementedError`` at construction, naming its ROADMAP queue 1 item:
-``ep`` (item 8), ``pp`` (7e), ``zero_stage=1`` and ``bucket_mb`` (7c), and
-``sp > 1`` together with another axis above 1 (7a2, the ring inside a
-larger mesh).
+``dp``, ``fsdp``, ``sp`` and ``tp`` on a ``torch.distributed``
+``DeviceMesh`` (one rank per card), ``sp`` through ring or Ulysses
+attention over the ``seq`` axis, and ``zero_stage``/``bucket_mb`` as the
+bucketed and ZeRO-1 steps of :mod:`maggy_tpu_torch.parallel.overlap`.
+What it does not run yet raises ``NotImplementedError`` at construction,
+naming its ROADMAP queue 1 item: ``ep`` (item 8) and ``pp`` (7e).
 """
 
 from __future__ import annotations
@@ -49,9 +49,13 @@ class ShardingSpec:
     ``tp``    tensor parallelism over ``tensor`` (DTensor
               ``parallelize_module``): attention heads, the MLP hidden
               width and the vocabulary;
-    ``sp``    sequence parallelism, ring attention (alone, for now);
-    ``ep``, ``pp``, ``zero_stage``, ``bucket_mb``: the JAX spec's fields,
-              accepted only with the value that leaves them off.
+    ``sp``    sequence parallelism over ``seq``: ring or Ulysses
+              attention, alone or with any of the axes above;
+    ``zero_stage`` 0 or 1: ZeRO-1 shards the optimizer state over
+              ``data`` (a pure ``dp`` mesh; elsewhere it stays off, with
+              a warning, as in JAX);
+    ``bucket_mb`` the gradient-reduction bucket in MiB (None: unbucketed);
+    ``ep``, ``pp``: the JAX spec's fields, accepted only at 1.
     """
 
     dp: int
@@ -80,12 +84,6 @@ class ShardingSpec:
             _refuse(f"expert parallelism (ep={ep}, with moe.py)", "8")
         if pp > 1:
             _refuse(f"pipeline parallelism (pp={pp})", "7e")
-        if zero_stage == 1:
-            _refuse("ZeRO-1 (zero_stage=1)", "7c")
-        if bucket_mb is not None:
-            _refuse(f"bucketed gradient reduction (bucket_mb={bucket_mb})", "7c")
-        if sp > 1 and dp * fsdp * tp > 1:
-            _refuse(f"the ring inside a larger mesh (sp={sp} with dp={dp}, fsdp={fsdp}, tp={tp})", "7a2")
         for name, v in values.items():
             object.__setattr__(self, name, v)
 

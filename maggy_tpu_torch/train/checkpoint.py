@@ -7,8 +7,9 @@ Counterpart of :mod:`maggy_tpu.train.checkpoint`, with orbax replaced by
   :class:`~maggy_tpu_torch.train.trainer.TrainState` into a trial directory,
   with the JAX package's API and JSON sidecar meta.
 * :func:`restore_zero_compat` — the ZeRO-aware restore ``fit(resume=...)``
-  goes through; only the dense layout is ported (ZeRO-1 is ROADMAP queue 1
-  item 7c).
+  goes through: dense to ZeRO-1 and back, and ZeRO-1 across a change of
+  ``data`` width or ``bucket_mb``, converting the optimizer state as JAX's
+  does.
 * experiment resume — :func:`load_finalized_trials` preloads a previous
   experiment's persisted ``trial.json`` records.
 
@@ -22,9 +23,13 @@ the optimizer's full ``state_dict()`` (each parameter's moments and its
 ``step`` tensor, which bias correction reads, and the param-group
 hyperparameters), whose state is keyed by parameter order — so a restore
 into a trainer built the same way puts every value back where it was.
+Under ZeRO-1 (``meta["zero"]["stage"] == 1``) the optimizer's state is
+JAX's flat layout instead: keyed by bucket, each moment the bucket's whole
+flat padded vector (:mod:`maggy_tpu_torch.parallel.overlap`).
 
 Under a mesh (a model whose parameters are DTensors, laid out by
-``Trainer.make_state``) the checkpoint is rank 0's: ``save``, ``wait``,
+``Trainer.make_state``, or a bucketed or ZeRO-1 state, whose
+``TrainState.layout`` is set) the checkpoint is rank 0's: ``save``, ``wait``,
 ``close`` and ``restore`` are collectives that every rank calls at the
 same point, and every decision in them is rank 0's, taken on rank 0's
 directory and sent to the others (:func:`~maggy_tpu_torch.parallel.mesh.from_rank0`),
@@ -36,7 +41,8 @@ format, so a checkpoint is the same file whatever the mesh; every rank
 learns whether rank 0's write committed at the next save, ``wait`` or
 ``close`` (within the host group's ``PROCESS_GROUP_TIMEOUT_S``). A
 restore under a mesh loads the file on rank 0 only and broadcasts it
-(``broadcast_from_rank0=True``), each rank keeping its shards: a
+(``broadcast_from_rank0=True``; a bucketed or ZeRO-1 state takes each
+tensor by ``broadcast``), each rank keeping its shards: a
 checkpoint moves between meshes, and between a mesh and one device, as
 orbax's restore does in the JAX package.
 
@@ -146,7 +152,7 @@ class Checkpointer:
 
         tel = telemetry.get()
         step = int(step)
-        if _sharded(state.model):
+        if _collective(state):
             return self._save_sharded(step, state, meta, tel)
         if (self._writer is not None and self._writing == step) or step in self.all_steps():
             if not self.async_save:
@@ -309,6 +315,8 @@ class Checkpointer:
         state_template: Any,
         step: Optional[int] = None,
         expect_meta: Optional[Dict[str, Any]] = None,
+        *,
+        convert=None,
     ) -> Any:
         """Restore into the live ``state_template`` (a ``TrainState`` from
         ``Trainer.make_state``), in place, and return it: every parameter,
@@ -320,11 +328,14 @@ class Checkpointer:
         Fallback: when no explicit ``step`` was requested and the latest
         retained step is unreadable, older retained steps are tried
         newest-first — each skip warns and counts a ``checkpoint_fallback``.
-        An explicitly requested step never falls back."""
+        An explicitly requested step never falls back.
+
+        ``convert`` (what :func:`restore_zero_compat` passes) rewrites the
+        loaded payload before it is copied in (on rank 0 under a mesh)."""
         from maggy_tpu_torch import telemetry
 
-        if _sharded(state_template.model):
-            return self._restore_sharded(state_template, step, expect_meta)
+        if _collective(state_template):
+            return self._restore_sharded(state_template, step, expect_meta, convert)
         explicit = step is not None
         candidates = self._candidates(step)
         for i, s in enumerate(candidates):
@@ -332,6 +343,8 @@ class Checkpointer:
                 self._check_meta(s, expect_meta)
             try:
                 payload = self._load(s)
+                if convert is not None:
+                    payload = convert(payload)
             # a truncated or corrupt file surfaces as several types (zip,
             # unpickling, OS errors): anything but success means "this step
             # is gone"
@@ -361,7 +374,8 @@ class Checkpointer:
             raise FileNotFoundError(f"No checkpoint found under {self.directory}")
         return steps
 
-    def _restore_sharded(self, state: Any, step: Optional[int], expect_meta: Optional[Dict[str, Any]]) -> Any:
+    def _restore_sharded(self, state: Any, step: Optional[int], expect_meta: Optional[Dict[str, Any]],
+                         convert=None) -> Any:
         """A restore under a mesh: rank 0 picks the step and reads the file
         (falling back to older steps as :meth:`restore` does) and
         broadcasts it; every rank keeps its shards and raises what rank 0
@@ -378,6 +392,7 @@ class Checkpointer:
 
         model_sd: Dict[str, Any] = {}
         optim_sd: Dict[str, Any] = {}
+        payload = None
         status = None
         if dist.get_rank() == 0:
             try:
@@ -389,7 +404,12 @@ class Checkpointer:
                     self._check_meta(s, expect_meta)
                 try:
                     payload = self._load(s)
-                    model_sd, optim_sd = _fqn_state_dicts(state, payload)
+                    if convert is not None:
+                        payload = convert(payload)
+                    if getattr(state, "layout", None) is None:
+                        model_sd, optim_sd = _fqn_state_dicts(state, payload)
+                    else:  # broadcast as it is below
+                        _check_params(state, payload["params"])
                     status = ("ok", int(payload["step"]))
                     break
                 except Exception as e:  # noqa: BLE001 - unreadable or mismatched: as restore()
@@ -407,6 +427,10 @@ class Checkpointer:
             raise FileNotFoundError(value)
         if kind != "ok":
             raise ValueError(f"restore failed on rank 0: {value}")
+        if getattr(state, "layout", None) is not None:  # plain tensors, replicated or flat-sharded
+            with telemetry.get().span("checkpoint_restore", step=value):
+                _copy_layout(state, _broadcast_tree(payload, next(state.model.parameters()).device))
+            return state
         # two calls: set_state_dict would read the other ranks' empty model
         # dict as "optimizer only" and skip the model's broadcast
         options = StateDictOptions(full_state_dict=True, broadcast_from_rank0=True)
@@ -447,6 +471,12 @@ class Checkpointer:
         return steps[-1] if steps else None
 
 
+def _collective(state) -> bool:
+    """Whether a save or restore of ``state`` is a collective of its mesh:
+    its parameters are DTensors, or it is a bucketed or ZeRO-1 state."""
+    return _sharded(state.model) or getattr(state, "layout", None) is not None
+
+
 def _sharded(model) -> bool:
     """Whether ``model``'s parameters are laid out on a mesh (DTensors)."""
     import sys
@@ -469,11 +499,14 @@ def _tensors(tree):
 def _full_payload(step: int, state: Any) -> Optional[Dict[str, Any]]:
     """The checkpoint of a state laid out on a mesh, in the one-device
     format: the full parameters in ``named_parameters()`` order and the
-    optimizer's state keyed by parameter index, on the host of rank 0 (the
+    optimizer's state keyed by parameter index (by bucket, each moment the
+    bucket's whole flat vector, under ZeRO-1), on the host of rank 0 (the
     other ranks take part in the gather and get None)."""
     import torch.distributed as dist
     from torch.distributed.checkpoint.state_dict import StateDictOptions, get_state_dict
 
+    if getattr(state, "layout", None) is not None:
+        return _layout_payload(step, state)
     model_sd, optim_sd = get_state_dict(
         state.model, state.optimizer, options=StateDictOptions(full_state_dict=True, cpu_offload=True)
     )
@@ -500,21 +533,107 @@ def _fqn_state_dicts(state: Any, payload: Dict[str, Any]):
     not fit the live model."""
     names = [name for name, _ in state.model.named_parameters()]
     saved = payload["params"]
-    if list(saved) != names:
-        missing, extra = set(names) - set(saved), set(saved) - set(names)
-        raise ValueError(
-            f"checkpoint parameters differ from the model's (missing {sorted(missing)}, "
-            f"unexpected {sorted(extra)}, or in another order)"
-        )
-    for name, p in state.model.named_parameters():
-        if tuple(saved[name].shape) != tuple(p.shape):
-            raise ValueError(f"{name}: checkpoint shape {tuple(saved[name].shape)} != {tuple(p.shape)}")
+    _check_params(state, saved)
     osd = payload["optimizer"]
     optim = {
         "state": {names[int(i)]: values for i, values in osd["state"].items()},
         "param_groups": [{**g, "params": [names[int(i)] for i in g["params"]]} for g in osd["param_groups"]],
     }
     return dict(saved), optim
+
+
+@torch.no_grad()
+def _layout_payload(step: int, state: Any) -> Optional[Dict[str, Any]]:
+    """:func:`_full_payload` of a bucketed or ZeRO-1 state. Its parameters
+    are whole on every rank; under ZeRO-1 each moment of each bucket is
+    all-gathered from the ``data`` ranks' shards into the bucket's flat
+    vector."""
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.parallel import overlap
+
+    layout = state.layout
+    osd = state.optimizer.state_dict()
+    opt_state = {}
+    for j, per in osd["state"].items():
+        out = {}
+        for key, value in per.items():
+            if layout.zero is not None and isinstance(value, torch.Tensor) and value.dim() == 1:
+                full = torch.empty(layout.plan.buckets[j].padded_size, dtype=value.dtype, device=value.device)
+                overlap.all_gather_flat(dist)(full, value.contiguous(), group=layout.group)
+                value = full
+            out[key] = value.cpu() if isinstance(value, torch.Tensor) else value
+        opt_state[j] = out
+    if dist.get_rank() != 0:
+        return None
+    return {
+        "step": int(step),
+        "params": {name: p.detach().cpu() for name, p in state.model.named_parameters()},
+        "optimizer": {"state": opt_state, "param_groups": osd["param_groups"]},
+    }
+
+
+class _Slot:
+    """A tensor's place in a broadcast tree: its shape and dtype."""
+
+    def __init__(self, t: torch.Tensor):
+        self.shape, self.dtype = tuple(t.shape), t.dtype
+
+
+def _skeleton(tree):
+    if isinstance(tree, torch.Tensor):
+        return _Slot(tree)
+    if isinstance(tree, dict):
+        return {k: _skeleton(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_skeleton(v) for v in tree]
+    return tree
+
+
+def _broadcast_tree(tree, device):
+    """Rank 0's ``tree`` (dicts, lists, tensors, plain values) on every
+    rank, each tensor broadcast on ``device``; every rank must call it."""
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.parallel.mesh import from_rank0
+
+    rank0 = dist.get_rank() == 0
+
+    def fill(skel, mine):
+        if isinstance(skel, _Slot):
+            t = mine.to(device) if rank0 else torch.empty(skel.shape, dtype=skel.dtype, device=device)
+            dist.broadcast(t, 0)
+            return t
+        if isinstance(skel, dict):
+            return {k: fill(v, mine[k] if rank0 else None) for k, v in skel.items()}
+        if isinstance(skel, list):
+            return [fill(v, mine[i] if rank0 else None) for i, v in enumerate(skel)]
+        return skel
+
+    return fill(from_rank0(_skeleton(tree) if rank0 else None), tree)
+
+
+def _copy_layout(state: Any, payload: Dict[str, Any]) -> None:
+    """Copy a payload in this state's layout into a bucketed or ZeRO-1
+    state: the parameters whole (under ZeRO-1 into the flat buffers they
+    are views of), the optimizer's state as it is (bucket) or this rank's
+    shard of each flat vector (ZeRO-1)."""
+    layout = state.layout
+    if layout.zero is None:
+        _copy_into(state, payload)
+        return
+    osd = payload["optimizer"]
+    mine = {}
+    for j, per in osd["state"].items():
+        n = layout.plan.buckets[int(j)].padded_size // layout.dz
+        mine[int(j)] = {
+            k: v[layout.rank * n:(layout.rank + 1) * n]
+            if isinstance(v, torch.Tensor) and v.dim() == 1 and v.shape[0] == n * layout.dz else v
+            for k, v in per.items()
+        }
+    _copy_params(state, payload)
+    _copy_optimizer(state.optimizer, {"state": mine, "param_groups": osd["param_groups"]})
+    state.step = int(payload["step"])
 
 
 def _agree_on_commit(err: Optional[BaseException]) -> Optional[BaseException]:
@@ -536,8 +655,15 @@ def _copy_into(state: Any, payload: Dict[str, Any]) -> None:
     """Copy a loaded checkpoint into a live TrainState: tensors that exist
     are overwritten in place; optimizer state a fresh optimizer has not made
     yet is made on its parameter's device."""
+    _copy_params(state, payload)
+    _copy_optimizer(state.optimizer, payload["optimizer"])
+    state.step = int(payload["step"])
+
+
+def _check_params(state: Any, saved: Dict[str, Any]) -> None:
+    """Raise ValueError unless a checkpoint's parameters are the live
+    model's, by name, order and shape (a DTensor by its global shape)."""
     params = dict(state.model.named_parameters())
-    saved = payload["params"]
     if list(saved) != list(params):
         missing, extra = set(params) - set(saved), set(saved) - set(params)
         raise ValueError(
@@ -547,10 +673,18 @@ def _copy_into(state: Any, payload: Dict[str, Any]) -> None:
     for name, p in params.items():
         if tuple(saved[name].shape) != tuple(p.shape):
             raise ValueError(f"{name}: checkpoint shape {tuple(saved[name].shape)} != {tuple(p.shape)}")
+
+
+@torch.no_grad()
+def _copy_params(state: Any, payload: Dict[str, Any]) -> None:
+    saved = payload["params"]
+    _check_params(state, saved)
+    for name, p in state.model.named_parameters():
         p.copy_(saved[name])
 
-    opt = state.optimizer
-    osd = payload["optimizer"]
+
+@torch.no_grad()
+def _copy_optimizer(opt, osd: Dict[str, Any]) -> None:
     live_groups = opt.param_groups
     if len(osd["param_groups"]) != len(live_groups) or any(
         len(g["params"]) != len(lg["params"]) for g, lg in zip(osd["param_groups"], live_groups)
@@ -581,7 +715,6 @@ def _copy_into(state: Any, payload: Dict[str, Any]) -> None:
             del live[key]
     for group, saved_group in zip(live_groups, osd["param_groups"]):
         group.update({k: v for k, v in saved_group.items() if k != "params"})
-    state.step = int(payload["step"])
 
 
 _DENSE_ZERO = {"stage": 0, "bucket_mb": None, "shards": 1}
@@ -594,33 +727,95 @@ def restore_zero_compat(
     live_meta: Optional[Dict[str, Any]] = None,
     step: Optional[int] = None,
 ) -> Any:
-    """Restore a TrainState across ZeRO layouts. Only the dense layout
-    (``zero.stage == 0``, saved and live) is ported: then it is exactly
-    :meth:`Checkpointer.restore`, under a mesh or not. A ZeRO-1 layout on
-    either side raises :class:`NotImplementedError` (ROADMAP queue 1 item
-    7c)."""
+    """Restore a TrainState across ``zero_stage`` / bucket / data-width
+    transitions, as JAX's does.
+
+    Under ZeRO-1 the optimizer state is saved as flat bucket vectors
+    (:mod:`maggy_tpu_torch.parallel.overlap`), a layout keyed by the bucket
+    plan, which changes with ``bucket_mb`` and the ``data`` width. The
+    sidecar meta records it (``checkpoint_meta()["zero"]``); when it
+    differs from the live trainer's, this restore warns, counts
+    ``resilience.ckpt_zero_reshards``, and converts the optimizer state
+    (dense to flat, flat to dense, or flat to flat across plans) before it
+    is copied in. With matching layouts it is exactly
+    :meth:`Checkpointer.restore`. Under a mesh the saved layout is rank
+    0's, read from rank 0's checkpoint, and rank 0 converts."""
+    import functools
+
+    from maggy_tpu_torch import telemetry
+
     live_zero = dict((live_meta or {}).get("zero") or _DENSE_ZERO)
 
     def saved():
         resolved = int(step) if step is not None else checkpointer.latest_step()
         saved_meta = checkpointer.saved_meta(resolved) if resolved is not None else None
-        return dict((saved_meta or {}).get("zero") or _DENSE_ZERO)
+        return resolved, dict((saved_meta or {}).get("zero") or _DENSE_ZERO)
 
-    if _sharded(state_template.model):  # rank 0's checkpoint: its answer
+    if _collective(state_template):  # rank 0's checkpoint: its answer
         import torch.distributed as dist
 
         from maggy_tpu_torch.parallel.mesh import from_rank0
 
-        saved_zero = from_rank0(saved() if dist.get_rank() == 0 else None)
+        resolved, saved_zero = from_rank0(saved() if dist.get_rank() == 0 else None)
     else:
-        saved_zero = saved()
-    for side, zero in (("saved", saved_zero), ("live", live_zero)):
-        if int(zero.get("stage") or 0) != 0:
-            raise NotImplementedError(
-                f"the {side} optimizer state has ZeRO stage {zero.get('stage')}; the port "
-                "restores the dense layout only (ZeRO-1 is ROADMAP queue 1 item 7c)"
-            )
-    return checkpointer.restore(state_template, step=step, expect_meta=live_meta)
+        resolved, saved_zero = saved()
+    if saved_zero == live_zero:
+        return checkpointer.restore(state_template, step=step, expect_meta=live_meta)
+    telemetry.get().count("resilience.ckpt_zero_reshards")
+    warnings.warn(
+        f"checkpoint step {resolved} holds a {_zero_desc(saved_zero)} optimizer-state layout; converting to "
+        f"the live {_zero_desc(live_zero)} layout during restore",
+        stacklevel=2,
+    )
+    convert = functools.partial(convert_zero_payload, saved=saved_zero, live=live_zero)
+    return checkpointer.restore(state_template, step=step, expect_meta=live_meta, convert=convert)
+
+
+def _zero_plan(params: Dict[str, torch.Tensor], zero: Dict[str, Any]):
+    """``(plan, order, leaves)`` of a ZeRO-1 layout over ``params`` (the
+    checkpoint's, in ``named_parameters()`` order): its bucket plan, each
+    plan leaf's index in that order, and the leaves in plan order; None
+    for the dense layout."""
+    from maggy_tpu_torch.parallel import overlap
+
+    if int(zero.get("stage") or 0) == 0:
+        return None
+    names = list(params)
+    index = {name: i for i, name in enumerate(names)}
+    leaves_in_order = overlap.jax_leaf_order(names)
+    leaves = [params[n] for n in leaves_in_order]
+    plan = overlap.plan_buckets(leaves, zero.get("bucket_mb"), pad_to=max(1, int(zero.get("shards") or 1)))
+    return plan, [index[n] for n in leaves_in_order], leaves
+
+
+def convert_zero_payload(payload: Dict[str, Any], *, saved: Dict[str, Any], live: Dict[str, Any]) -> Dict[str, Any]:
+    """A loaded checkpoint with its optimizer state converted from the
+    ``saved`` ZeRO layout to the ``live`` one (each a
+    ``checkpoint_meta()["zero"]``): the flat bucket vectors of ZeRO-1 back
+    to one state per parameter, then, for a ZeRO-1 live layout, into its
+    own plan's buckets (padding rebuilt for its width)."""
+    from maggy_tpu_torch.parallel import overlap
+
+    params = payload["params"]
+    opt = payload["optimizer"]
+    layout = _zero_plan(params, saved)
+    if layout is not None:  # flat -> per leaf (plan order) -> per parameter
+        plan, order, leaves = layout
+        dense = overlap.unflatten_opt_state(opt, plan, leaves)
+        opt = {"state": {order[i]: v for i, v in dense["state"].items()},
+               "param_groups": [{**dense["param_groups"][0], "params": list(range(len(params)))}]}
+    layout = _zero_plan(params, live)
+    if layout is not None:  # per parameter -> per leaf (plan order) -> flat
+        plan, order, leaves = layout
+        per_leaf = {i: opt["state"][p] for i, p in enumerate(order) if p in opt["state"]}
+        opt = overlap.flatten_opt_state({"state": per_leaf, "param_groups": opt["param_groups"]}, plan, leaves)
+    return {**payload, "optimizer": opt}
+
+
+def _zero_desc(zero: Dict[str, Any]) -> str:
+    if int(zero.get("stage") or 0) == 0:
+        return "dense (zero_stage=0)"
+    return f"ZeRO-1 (shards={zero.get('shards')}, bucket_mb={zero.get('bucket_mb')})"
 
 
 def load_finalized_trials(exp_dir: str) -> list:

@@ -6,12 +6,15 @@ losses, a ``TrainState``, a ``Trainer`` with ``make_state``, ``step``,
 (checkpoints, ``resume``, the preemption save, the input prefetcher, the
 profiler window and the telemetry of the JAX ``fit``), and a
 ``TrainContext``. A context over a ``DeviceMesh`` (``dp``, ``fsdp``,
-``tp``; one process per card) lays the ``Decoder`` out with FSDP2 and
-DTensor tensor parallelism (:mod:`maggy_tpu_torch.parallel.sharding`);
-one for sequence parallelism (``ShardingSpec(sp=n)``) attends through
-:mod:`maggy_tpu_torch.parallel.ringattention`. Pipelines (ROADMAP queue 1
-item 7e), ZeRO-1 and bucketed overlap (7c), elastic membership (7f) and
-the autopilot (item 9) belong to later slices of the port.
+``sp``, ``tp``; one process per card) lays the ``Decoder`` out with FSDP2
+and DTensor tensor parallelism (:mod:`maggy_tpu_torch.parallel.sharding`)
+and splits each sequence over ``seq`` (ring attention,
+:mod:`maggy_tpu_torch.parallel.ringattention`, or Ulysses,
+:mod:`maggy_tpu_torch.parallel.ulysses`); on a pure ``dp`` mesh,
+``zero_stage``/``bucket_mb`` select the bucketed and ZeRO-1 steps of
+:mod:`maggy_tpu_torch.parallel.overlap`. Pipelines (ROADMAP queue 1 item
+7e), elastic membership (7f) and the autopilot (item 9) belong to later
+slices of the port.
 
 Where the JAX step is a pure function returning a new state, ``step``
 updates the parameters and optimizer in place and returns the same state
@@ -22,9 +25,11 @@ never waits on the card inside the loop unless it asks for a value.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import sys
 import time
+import warnings
 from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -32,10 +37,18 @@ import numpy as np
 import torch
 from torch import nn
 
+from maggy_tpu_torch.parallel import overlap
 from maggy_tpu_torch.parallel import sharding as shd
-from maggy_tpu_torch.parallel.mesh import any_rank, from_rank0, mesh_shape
+from maggy_tpu_torch.parallel.mesh import any_rank, data_group, from_rank0, mesh_shape, seq_group
 from maggy_tpu_torch.parallel.ringattention import LocalRing, ProcessGroupRing
-from maggy_tpu_torch.parallel.spec import AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, ShardingSpec
+from maggy_tpu_torch.parallel.spec import (
+    AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_FSDP,
+    AXIS_SEQ,
+    AXIS_TENSOR,
+    ShardingSpec,
+)
 from maggy_tpu_torch.util import resolve_device
 
 Batch = Dict[str, Any]
@@ -130,6 +143,17 @@ def _shard_for(ring, batch: Batch) -> Batch:
     return batch
 
 
+def _split_of(mesh, ring) -> Optional[Tuple[int, int, Any]]:
+    """``(this rank's chunk, chunks, group)`` when each rank holds a chunk
+    of the sequence: the ``seq`` axis of a mesh, or a ProcessGroupRing."""
+    if mesh is not None:
+        n = mesh_shape(mesh).get(AXIS_SEQ, 1)
+        return (mesh.get_local_rank(AXIS_SEQ), n, seq_group(mesh)) if n > 1 else None
+    if isinstance(ring, ProcessGroupRing):
+        return ring.rank, ring.size, ring.group
+    return None
+
+
 def shard_rows(batch: Batch, mesh) -> Batch:
     """This rank's rows of a global batch on ``mesh``: the rows split over
     (``data``, ``fsdp``), ``data`` outer, as JAX's ``batch`` rule places
@@ -162,37 +186,35 @@ def _chunk_lm_loss_parts(logits: torch.Tensor, batch: Batch) -> Tuple[torch.Tens
     return (ll * weights).sum(), weights.sum()
 
 
-# gradients are summed over a ProcessGroupRing in buckets of about this size
+# gradients are summed over a sequence split in buckets of about this size
 ALL_REDUCE_BUCKET_BYTES = 256 << 20
 
 
+@torch.no_grad()
 def _all_reduce_sum(tensors, group, bucket_bytes: int = ALL_REDUCE_BUCKET_BYTES) -> None:
-    """Sum ``tensors`` in place over ``group`` in few calls: consecutive
-    tensors of one dtype are flattened into a bucket of up to
-    ``bucket_bytes``, reduced at once and copied back; a tensor as large as
-    a bucket is reduced alone, with no copy. Each element is summed as a
-    call per tensor would sum it."""
+    """Sum ``tensors`` in place over ``group`` in few calls, in the buckets
+    :func:`~maggy_tpu_torch.parallel.overlap.plan_buckets` cuts (one dtype
+    each, up to ``bucket_bytes``): each is flattened, reduced at once and
+    copied back; a bucket of one tensor is reduced in place, with no copy.
+    Each element is summed as a call per tensor would sum it."""
     import torch.distributed as dist
 
-    def flush(bucket):
+    tensors = list(tensors)
+    for b in overlap.plan_buckets(tensors, bucket_bytes / 2**20).buckets:
+        bucket = [tensors[i] for i in b.indices]
         if len(bucket) == 1:
             dist.all_reduce(bucket[0], group=group)
-            return
+            continue
         flat = torch.cat([t.reshape(-1) for t in bucket])
         dist.all_reduce(flat, group=group)
-        for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
+        for t, part in zip(bucket, flat.split(b.sizes)):
             t.copy_(part.view_as(t))
 
-    bucket, size = [], 0
-    for t in tensors:
-        nbytes = t.numel() * t.element_size()
-        if bucket and (size + nbytes > bucket_bytes or t.dtype != bucket[0].dtype):
-            flush(bucket)
-            bucket, size = [], 0
-        bucket.append(t)
-        size += nbytes
-    if bucket:
-        flush(bucket)
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the tensor itself, under no_grad), or the
+    tensor."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def _global_norm(grads) -> torch.Tensor:
@@ -219,6 +241,26 @@ def _global_norm(grads) -> torch.Tensor:
         raise ValueError("no gradients to take the norm of")
     dist.all_reduce(total)
     return total.sqrt()
+
+
+# warn once per process that a requested overlap configuration stays on the
+# dense path (JAX keeps this in train/pipeline_adapter.py, ROADMAP queue 1
+# item 7e; it lives here until that item is ported)
+_overlap_fallback_warned = False
+
+
+def warn_overlap_unbucketed(reason: str) -> None:
+    """Warn once per process that a requested gradient-overlap
+    configuration falls back to the unbucketed path; training proceeds
+    unchanged."""
+    global _overlap_fallback_warned
+    if _overlap_fallback_warned:
+        return
+    _overlap_fallback_warned = True
+    warnings.warn(
+        f"gradient overlap disabled: {reason}; training continues on the unbucketed path",
+        stacklevel=3,
+    )
 
 
 def classification_loss_fn(logits: torch.Tensor, batch: Batch) -> torch.Tensor:
@@ -250,6 +292,10 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    # the bucketed or ZeRO-1 step's reduction state
+    # (:class:`~maggy_tpu_torch.parallel.overlap.OverlapLayout`); None on
+    # the dense path
+    layout: Any = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -279,7 +325,22 @@ class Trainer:
     is the global token-weighted mean, as JAX's over the whole batch: each
     rank differentiates its log-likelihood sum over the global weight and
     the gradients are summed, so ranks holding different token weights
-    (packed ``segment_ids``, a ``loss_mask``) are weighted exactly."""
+    (packed ``segment_ids``, a ``loss_mask``) are weighted exactly. A
+    mesh whose ``seq`` axis is above 1 splits each row's sequence over it
+    as well (the model attends through ring or Ulysses attention over that
+    axis): the gradients are then also summed over ``seq`` after the
+    backward, so the grad norm counts each gradient once. ``ring`` may
+    then be the :class:`ProcessGroupRing` over that axis
+    (:meth:`ProcessGroupRing.over_mesh`).
+
+    ``zero_stage`` (0 or 1) and ``bucket_mb`` (MiB; None or inf:
+    unbucketed) are JAX's overlap knobs (:meth:`_overlap_mode`). On a mesh
+    whose only axis above 1 is ``data`` they select the bucketed step
+    (each bucket all-reduced over ``data`` as backward fills it) or the
+    ZeRO-1 step (each bucket reduce-scattered, AdamW on this rank's flat
+    shard, the parameters all-gathered back), both in
+    :mod:`~maggy_tpu_torch.parallel.overlap`; there FSDP2 does not wrap the
+    model. Elsewhere they stay off with JAX's one-time warning."""
 
     model: nn.Module
     optimizer: Callable[..., torch.optim.Optimizer]
@@ -289,24 +350,37 @@ class Trainer:
     # elastic membership (a MembershipMonitor) is ROADMAP queue 1 item 7f
     membership: Optional[Any] = None
     mesh: Any = None
+    zero_stage: int = 0
+    bucket_mb: Optional[float] = None
 
     def __post_init__(self):
         if self.membership is not None:
             raise NotImplementedError(
                 "elastic membership is not ported yet (ROADMAP queue 1 item 7f)"
             )
+        if self.zero_stage not in (0, 1):
+            raise ValueError(f"Trainer.zero_stage must be 0 or 1, got {self.zero_stage!r}")
+        if self.bucket_mb is not None and not float(self.bucket_mb) > 0:
+            raise ValueError(f"Trainer.bucket_mb must be positive (or None), got {self.bucket_mb!r}")
         self.device = resolve_device(self.device)
         if self.ring is not None and not isinstance(self.ring, (LocalRing, ProcessGroupRing)):
             raise TypeError(f"ring must be a LocalRing or a ProcessGroupRing, got {type(self.ring).__name__}")
-        if self._group_ring and self.loss_fn is not lm_loss_fn:
-            raise NotImplementedError(
-                "a ProcessGroupRing trainer trains the LM loss only (its targets cross chunks)"
-            )
-        if self.mesh is not None:
-            if self.ring is not None:
-                raise NotImplementedError(
-                    "the ring inside a larger mesh is ROADMAP queue 1 item 7a2, not ported yet"
+        if self.mesh is not None and self.ring is not None:
+            n = self._mesh_shape.get(AXIS_SEQ, 1)
+            if not isinstance(self.ring, ProcessGroupRing) or self.ring.size != n:
+                raise ValueError(
+                    f"a ring under a mesh is the ProcessGroupRing over its seq axis ({n} ranks; "
+                    "ProcessGroupRing.over_mesh(mesh)), got a "
+                    f"{type(self.ring).__name__} of {self.ring.size}"
                 )
+        self._split = _split_of(self.mesh, self.ring)
+        if self._split is not None and self.loss_fn is not lm_loss_fn:
+            raise NotImplementedError(
+                "a trainer over a split sequence trains the LM loss only (its targets cross chunks)"
+            )
+        self._overlap_memo = None
+        self._overlap_layout = None
+        if self.mesh is not None:
             cfg = getattr(self.model, "cfg", None)
             if cfg is None or not hasattr(self.model, "layers"):
                 raise NotImplementedError(
@@ -326,33 +400,113 @@ class Trainer:
     def _mesh_shape(self) -> Dict[str, int]:
         return mesh_shape(self.mesh) if self.mesh is not None else {}
 
+    # ---------------------------------------------------------------- overlap
+
+    def _bucket_mb_eff(self) -> Optional[float]:
+        """``bucket_mb`` normalised: None or inf (one bucket per dtype) -> None."""
+        if self.bucket_mb is None or not math.isfinite(float(self.bucket_mb)):
+            return None
+        return float(self.bucket_mb)
+
+    def _overlap_mode(self) -> Tuple[str, Tuple[str, ...], int]:
+        """Which step the configuration gets, resolved once:
+        ``("off" | "bucket" | "zero", manual batch axes, zero shard count)``.
+
+        ``zero_stage``/``bucket_mb`` request the overlap step, which reduces
+        the gradients over ``data`` itself. It needs a mesh whose only axis
+        above 1 is ``data``: ``fsdp``, ``tensor``, ``seq`` or ``expert``
+        above 1 (FSDP2 and DTensor lay those out; under fsdp the optimizer
+        state is sharded already), or no ``data`` axis to reduce over, warn
+        once and stay on the dense path, as JAX's does (a ring trainer
+        counts as a ``seq`` axis, a trainer without a mesh as a mesh of one
+        device)."""
+        if self._overlap_memo is not None:
+            return self._overlap_memo
+        off = ("off", (), 1)
+        requested = self.zero_stage > 0 or self._bucket_mb_eff() is not None
+        if not requested:
+            self._overlap_memo = off
+            return off
+        shape = self._mesh_shape or ({AXIS_SEQ: self.ring.size} if self.ring is not None else {})
+        manual = tuple(a for a in (AXIS_DATA,) if shape.get(a, 1) > 1)
+        blockers = sorted(a for a in (AXIS_FSDP, AXIS_TENSOR, AXIS_SEQ, AXIS_EXPERT) if shape.get(a, 1) > 1)
+        mode = off
+        if blockers:
+            warn_overlap_unbucketed(
+                f"mesh axes {blockers} are laid out by FSDP2, DTensor or the sequence split; the overlap "
+                "step needs a pure data mesh (fsdp already shards optimizer state)"
+            )
+        elif not manual:
+            warn_overlap_unbucketed("no data mesh axis > 1 to reduce over")
+        else:
+            dz = shape[AXIS_DATA] if self.zero_stage > 0 else 1
+            mode = ("zero" if dz > 1 else "bucket", manual, dz)
+        self._overlap_memo = mode
+        return mode
+
+    def _overlap_state(self, model: nn.Module, mode: str, dz: int) -> TrainState:
+        """The bucketed or ZeRO-1 state of ``model`` (materialised, the
+        same weights on every rank, not laid out): the bucket plan over
+        its parameters in JAX's flatten order, the per-bucket reduction
+        hooks, and under ZeRO-1 the flat buffers and the optimizer over
+        this rank's shards."""
+        from maggy_tpu_torch import telemetry
+
+        if self._overlap_layout is not None:  # a state made before: its hooks go
+            self._overlap_layout.remove()
+        params = dict(model.named_parameters())
+        names = overlap.jax_leaf_order(list(params))
+        leaves = [params[n] for n in names]
+        plan = overlap.plan_buckets(leaves, self._bucket_mb_eff(), pad_to=dz)
+        telemetry.get().gauge("train.bucket_count", len(plan.buckets))
+        group, rank = data_group(self.mesh), self.mesh.get_local_rank(AXIS_DATA)
+        zero = overlap.ZeroShards(leaves, plan, group, dz, rank) if mode == "zero" else None
+        grads = overlap.BucketedGrads(leaves, plan, group, shards=dz, rank=rank)
+        layout = overlap.OverlapLayout(mode, plan, names, group, dz, rank, grads, zero)
+        self._overlap_layout = layout
+        optimizer = self.optimizer(zero.shards if zero is not None else model.parameters())
+        return TrainState(model, optimizer, 0, layout=layout)
+
+    # ------------------------------------------------------------------ batches
+
     def shard_batch(self, batch: Batch, *, local: bool = False) -> Batch:
         """Under a mesh: this rank's rows of a global batch (every rank
         passes the same batch), or, with ``local=True``, the batch a
-        rank-sharding loader already cut for this rank, as it is. Under a
-        :class:`ProcessGroupRing`: this rank's chunk of the sequence
-        (:func:`shard_sequence`). Otherwise the batch itself."""
+        rank-sharding loader already cut for this rank, as it is; then,
+        when the mesh splits the sequence over ``seq``, the rows' chunk
+        (:func:`shard_sequence`). Under a :class:`ProcessGroupRing`: this
+        rank's chunk of the sequence. Otherwise the batch itself."""
         if self.mesh is None:
             return _shard_for(self.ring, batch)
-        return batch if local else shard_rows(batch, self.mesh)
+        rows = batch if local else shard_rows(batch, self.mesh)
+        split = self._split
+        return rows if split is None else shard_sequence(rows, split[0], split[1])
 
     def batch_shardings(self, batch: Batch) -> Dict[str, Tuple]:
         """Each batch leaf's placement: per dim, the mesh axes that split it
-        (rows over (``data``, ``fsdp``), the rest whole)."""
+        (rows over (``data``, ``fsdp``), the sequence over ``seq``, the
+        rest whole)."""
         rows = shd.batch_group_axes(self._mesh_shape)
-        return {k: (rows or None,) + (None,) * (np.ndim(v) - 1) for k, v in batch.items()}
+        seq = (AXIS_SEQ,) if self._mesh_shape.get(AXIS_SEQ, 1) > 1 else None
+        out = {}
+        for k, v in batch.items():
+            dims = [rows or None] + [None] * (np.ndim(v) - 1)
+            if len(dims) > 1:
+                dims[1] = seq
+            out[k] = tuple(dims)
+        return out
 
     def _losses(self, logits: torch.Tensor, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(this rank's term to differentiate, the loss)``. Under a
-        ProcessGroupRing or a mesh that splits the batch, the loss parts
-        are all-reduced: each rank differentiates its own log-likelihood
-        over the global weight."""
-        ring = self._group_ring
-        if ring is not None:
+        split sequence or a mesh that splits the batch, the loss parts are
+        all-reduced over every rank holding other tokens: each rank
+        differentiates its own log-likelihood over the global weight."""
+        split = self._split
+        if split is not None:
             if "targets" not in batch:
-                raise ValueError("a ProcessGroupRing step takes Trainer.shard_batch(global_batch)")
+                raise ValueError("a step over a split sequence takes Trainer.shard_batch(global_batch)")
             ll_sum, weight = _chunk_lm_loss_parts(logits, batch)
-            groups = [ring.group]
+            groups = [split[2]] + [self.mesh.get_group(a) for a in shd.batch_group_axes(self._mesh_shape)]
         elif self.mesh is not None and shd.batch_group_axes(self._mesh_shape):
             if self.loss_fn is lm_loss_fn:
                 ll_sum, weight = _lm_loss_parts(logits, batch)
@@ -405,7 +559,7 @@ class Trainer:
                 gen.manual_seed(int(seed_or_generator))
             model.reset_parameters(gen)
         ring = self._group_ring
-        if ring is not None:  # the parameters are replicated: rank 0's everywhere
+        if ring is not None and self.mesh is None:  # the parameters are replicated: rank 0's everywhere
             import torch.distributed as dist
 
             src = dist.get_global_rank(ring.group, 0) if ring.group is not None else 0
@@ -413,6 +567,9 @@ class Trainer:
                 for p in model.parameters():
                     dist.broadcast(p, src, group=ring.group)
         if self.mesh is not None:
+            mode, _, dz = self._overlap_mode()
+            if mode != "off":  # the trainer reduces over data itself: no FSDP2
+                return self._overlap_state(model, mode, dz)
             shd.shard_decoder(model, self.mesh)
         return TrainState(model, self.optimizer(model.parameters()), 0)
 
@@ -450,12 +607,32 @@ class Trainer:
             set_optimizer_state_dict,
         )
 
+        if state.layout is not None:
+            raise ValueError("adopt_state takes a dense state; a ZeRO-1 or bucketed state moves through a "
+                             "checkpoint (restore_zero_compat)")
         # full on every rank: each lays out its own shards from it
         full = StateDictOptions(full_state_dict=True)
         params = get_model_state_dict(state.model, options=full)
         optim = get_optimizer_state_dict(state.model, state.optimizer, options=full)
         mine = self.make_state(0, sample_batch, params=params)
-        set_optimizer_state_dict(mine.model, mine.optimizer, optim, options=full)
+        if mine.layout is None:
+            set_optimizer_state_dict(mine.model, mine.optimizer, optim, options=full)
+        else:  # the dense optimizer state in the checkpoint's form, converted to this layout
+            from maggy_tpu_torch.train.checkpoint import _DENSE_ZERO, _copy_layout, convert_zero_payload
+
+            names = [name for name, _ in mine.model.named_parameters()]
+            index = {name: i for i, name in enumerate(names)}
+            payload = {
+                "step": state.step,
+                "params": {name: params[name] for name in names},
+                "optimizer": {
+                    "state": {index[name]: v for name, v in optim["state"].items()},
+                    "param_groups": [{**g, "params": [index[n] for n in g["params"]]}
+                                     for g in optim["param_groups"]],
+                },
+            }
+            _copy_layout(mine, convert_zero_payload(payload, saved=_DENSE_ZERO,
+                                                    live=self.checkpoint_meta()["zero"]))
         mine.step = state.step
         return mine
 
@@ -469,7 +646,8 @@ class Trainer:
 
     def step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One AdamW step; metrics as in the JAX dense step. Under a
-        ProcessGroupRing the batch is this rank's :meth:`shard_batch`."""
+        ProcessGroupRing or a mesh the batch is this rank's
+        :meth:`shard_batch`."""
         batch = self._to_device(batch)
         logits = state.model(*_model_inputs(batch))
         term, loss = self._losses(logits, batch)
@@ -478,13 +656,20 @@ class Trainer:
         aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         total = loss + aux
         state.optimizer.zero_grad(set_to_none=True)
+        layout = state.layout
+        if layout is not None:
+            layout.grads.begin()
         (term + aux).backward()
-        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-        ring = self._group_ring
-        if ring is not None:  # the global gradient is the sum of the ranks'
-            _all_reduce_sum(grads, ring.group)
-        gnorm = _global_norm(grads) if self.mesh is not None else torch.nn.utils.get_total_norm(grads)
-        state.optimizer.step()
+        if layout is not None:
+            gnorm = layout.update(state.optimizer)
+        else:
+            grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+            split = self._split
+            if split is not None:  # the global gradient is the sum of the chunks'
+                with torch.no_grad():
+                    _all_reduce_sum([_local(g) for g in grads], split[2])
+            gnorm = _global_norm(grads) if self.mesh is not None else torch.nn.utils.get_total_norm(grads)
+            state.optimizer.step()
         metrics = {
             "loss": loss.detach(),
             "aux_loss": aux,
@@ -557,12 +742,14 @@ class Trainer:
         with the live trainer's and warn on a mismatch. The keys are the
         JAX trainer's: the mesh's axes of extent above 1 (the ring's ``sp``
         under a ring), the devices and processes, no microbatching, the
-        model's compute dtype and the dense ZeRO layout."""
+        model's compute dtype and the effective ZeRO layout (what
+        ``restore_zero_compat`` converts across)."""
         import torch.distributed as dist
 
         ring = self.ring
         sp = ring.size if ring is not None else 1
         cfg = getattr(self.model, "cfg", None)
+        mode, _, dz = self._overlap_mode()
         if self.mesh is not None:
             mesh_axes = {k: v for k, v in self._mesh_shape.items() if v > 1}
             num_devices = self.mesh.size()
@@ -575,7 +762,11 @@ class Trainer:
             "n_processes": dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1,
             "n_microbatches": None,
             "dtype": str(getattr(cfg, "dtype", None)) if cfg is not None else None,
-            "zero": {"stage": 0, "bucket_mb": None, "shards": 1},
+            "zero": {
+                "stage": 1 if mode == "zero" else 0,
+                "bucket_mb": self._bucket_mb_eff() if mode == "zero" else None,
+                "shards": dz,
+            },
         }
 
     def _sync(self) -> None:
@@ -853,20 +1044,29 @@ def _require_ring(spec: ShardingSpec) -> None:
             f"sp={spec.sp}; a mesh spans one process per device (TrainContext.create), "
             "and one device trains with Trainer directly"
         )
+    if spec.num_devices != spec.sp:
+        raise ValueError(
+            f"a local TrainContext runs the ring alone, in one process; {spec} spans a mesh of "
+            "one process per device (TrainContext.create)"
+        )
 
 
 @dataclasses.dataclass
 class TrainContext:
-    """What a distributed ``train_fn`` is handed: the spec, the device, and
-    either the mesh (``dp``, ``fsdp``, ``tp``) or the ring (``sp``) its
-    model trains over. Counterpart of the JAX package's ``TrainContext``.
+    """What a distributed ``train_fn`` is handed: the spec, the device, the
+    mesh and, when ``sp > 1``, the ring over its ``seq`` axis.
+    Counterpart of the JAX package's ``TrainContext``.
 
     ``create`` is the multi-card path, one process per rank over an
     initialised ``torch.distributed`` group (what
     ``lagom(train_fn, DistributedConfig(...))`` injects as ``ctx``);
     ``local`` runs every rank of a ring in this process (one card, or the
-    CPU in tests). Under a ring the model names it itself:
-    ``DecoderConfig(attention_fn=make_ring_attention(ctx.ring))``."""
+    CPU in tests). Under ``sp > 1`` the model names its attention itself:
+    ``DecoderConfig(attention_fn=make_ring_attention(ctx.mesh))`` (or
+    ``ctx.ring``) or ``make_ulysses_attention(ctx.mesh)``. A spec of
+    ``sp`` alone trains over the ring without a mesh (parameters
+    replicated, no FSDP2); with any other axis above 1 the trainer lays the model out on
+    the mesh and splits each row's sequence over ``seq``."""
 
     spec: ShardingSpec
     ring: Any
@@ -882,11 +1082,12 @@ class TrainContext:
     def create(cls, spec_or_preset: Union[ShardingSpec, str] = "fsdp", devices=None, role: str = "worker", *,
                device=None) -> "TrainContext":
         """A context over the default process group, whose size the spec
-        is scaled to (a preset is resolved against it). ``sp > 1`` builds a
-        :class:`ProcessGroupRing`; any other spec a DeviceMesh
-        (:func:`~maggy_tpu_torch.parallel.mesh.make_mesh`). The device is
-        ``devices[0]`` (this rank's lease), else ``device``, else
-        ``cuda:LOCAL_RANK``; ``device="cpu"`` for gloo ranks."""
+        is scaled to (a preset is resolved against it): a DeviceMesh
+        (:func:`~maggy_tpu_torch.parallel.mesh.make_mesh`) and, when
+        ``sp > 1``, the :class:`ProcessGroupRing` over its ``seq`` axis.
+        The device is ``devices[0]`` (this rank's lease), else ``device``,
+        else ``cuda:LOCAL_RANK``, else the current card; ``device="cpu"``
+        for gloo ranks."""
         import torch.distributed as dist
 
         from maggy_tpu_torch.parallel.mesh import make_mesh, set_ambient_mesh
@@ -904,21 +1105,20 @@ class TrainContext:
             spec = spec.scaled_to(size)
         if devices:
             device = devices[0]
-        if device is None:
-            device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        if device is None and "LOCAL_RANK" in os.environ:  # else resolve_device takes the current card
+            device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
         device = resolve_device(device)
         if role not in ("chief", "worker"):
             raise NotImplementedError(
                 f"the {role!r} role (the JAX package's evaluator) is ROADMAP queue 1 item 7f, not ported yet"
             )
         common = dict(process_index=dist.get_rank(), num_processes=size, role=role)
-        if spec.sp > 1:
-            return cls(spec, ProcessGroupRing(), device, **common)
         if device.type == "cuda":
             torch.cuda.set_device(device)
         mesh = make_mesh(spec, device.type)
         set_ambient_mesh(mesh)
-        return cls(spec, None, device, mesh=mesh, **common)
+        ring = ProcessGroupRing.over_mesh(mesh) if spec.sp > 1 else None
+        return cls(spec, ring, device, mesh=mesh, **common)
 
     @classmethod
     def local(cls, spec: ShardingSpec, device=None) -> "TrainContext":
@@ -926,23 +1126,43 @@ class TrainContext:
         _require_ring(spec)
         return cls(spec, LocalRing(spec.sp), resolve_device(device))
 
+    @property
+    def _trainer_mesh(self):
+        """The mesh the trainer lays the model out on: none for a ring
+        alone (``sp`` the only axis above 1), which trains over its
+        :class:`ProcessGroupRing` with the parameters replicated."""
+        if self.mesh is None or (self.spec.sp > 1 and self.spec.num_devices == self.spec.sp):
+            return None
+        return self.mesh
+
     def trainer(self, model: nn.Module, optimizer, loss_fn: Callable = lm_loss_fn,
                 n_microbatches: Optional[int] = None, zero_stage: Optional[int] = None,
                 bucket_mb: Optional[float] = None) -> Trainer:
+        """A Trainer over this context's mesh (or ring). The overlap knobs
+        default to the spec's (``DistributedConfig`` stamps them there);
+        explicit arguments win."""
         if n_microbatches is not None:
             raise NotImplementedError("microbatched pipelines (n_microbatches) are ROADMAP queue 1 item 7e")
-        if zero_stage or bucket_mb is not None:
-            raise NotImplementedError("ZeRO-1 and bucketed gradient reduction are ROADMAP queue 1 item 7c")
-        return Trainer(model, optimizer, device=self.device, loss_fn=loss_fn, ring=self.ring, mesh=self.mesh)
+        if zero_stage is None:
+            zero_stage = self.spec.zero_stage
+        if bucket_mb is None:
+            bucket_mb = self.spec.bucket_mb
+        return Trainer(model, optimizer, device=self.device, loss_fn=loss_fn, ring=self.ring,
+                       mesh=self._trainer_mesh, zero_stage=int(zero_stage), bucket_mb=bucket_mb)
 
     def shard_batch(self, global_batch: Batch) -> Batch:
         """Every rank passes the same global batch and gets its own part:
-        its rows under a mesh, its chunk of the sequence under a
-        ProcessGroupRing (:func:`shard_sequence`); with a LocalRing, the
-        batch itself."""
-        if self.mesh is not None:
+        its rows under a mesh, then its chunk of their sequence when the
+        mesh splits it over ``seq`` (:func:`shard_sequence`); its chunk of
+        the sequence under a ring alone; with a LocalRing, the batch
+        itself."""
+        mesh = self._trainer_mesh
+        if mesh is None:
+            return _shard_for(self.ring, global_batch)
+        split = _split_of(mesh, None)
+        if split is None:
             return self.shard(global_batch)
-        return _shard_for(self.ring, global_batch)
+        return shard_sequence(shard_rows(global_batch, mesh), split[0], split[1])
 
     def shard(self, tree: Batch, logical_axes=("batch",)) -> Dict[str, torch.Tensor]:
         """This rank's part of a host batch on its device: rows split over

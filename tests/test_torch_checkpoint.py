@@ -271,13 +271,51 @@ def test_missing_directory_behaves_as_jax(tmp_path):
 
 @pytest.mark.parametrize("side", ["saved", "live"])
 def test_zero_layout_raises_naming_item_7(tmp_path, side):
-    trainer, state, _ = _trainer(steps=0)
+    """ZeRO-1 layouts convert now (the multi-rank restores are in
+    ``tests/test_torch_zero_dist.py``). ``saved``: a checkpoint holding the
+    flat ZeRO-1 layout (two shards, 4 KiB buckets) restores into a dense
+    trainer with a warning and a ``resilience.ckpt_zero_reshards`` count,
+    its optimizer state equal to the dense state it was made from.
+    ``live``: the dense payload converted for a live ZeRO-1 layout holds
+    each bucket's moments as one flat padded vector, JAX's leaf order, and
+    converts back exactly."""
+    from maggy_tpu_torch.parallel import overlap
+    from maggy_tpu_torch.train.checkpoint import convert_zero_payload
+
+    trainer, state, _ = _trainer(steps=2)
     dense = trainer.checkpoint_meta()
-    zero1 = dict(dense, zero={"stage": 1, "bucket_mb": 4.0, "shards": 2})
+    zero1 = dict(dense, zero={"stage": 1, "bucket_mb": 4 / 1024, "shards": 2})
     ckpt = Checkpointer(str(tmp_path / "ck"), async_save=False)
-    ckpt.save(1, state, meta=zero1 if side == "saved" else dense)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        restore_zero_compat(ckpt, state, live_meta=dense if side == "saved" else zero1)
+    ckpt.save(2, state, meta=dense)
+    payload = ckpt._load(2)
+    flat = convert_zero_payload(payload, saved=dense["zero"], live=zero1["zero"])
+    params = payload["params"]
+    order = overlap.jax_leaf_order(list(params))
+    plan = overlap.plan_buckets([params[n] for n in order], 4 / 1024, pad_to=2)
+    assert len(plan.buckets) > 2 and sorted(flat["optimizer"]["state"]) == list(range(len(plan.buckets)))
+    index = {n: i for i, n in enumerate(params)}
+    for j, b in enumerate(plan.buckets):
+        for key in ("exp_avg", "exp_avg_sq"):
+            want = overlap.flatten_buckets([payload["optimizer"]["state"][index[order[i]]][key] for i in b.indices],
+                                           overlap.plan_buckets([params[order[i]] for i in b.indices][::-1],
+                                                                None, pad_to=2))
+            assert torch.equal(flat["optimizer"]["state"][j][key], next(iter(want.values())))
+    if side == "live":
+        back = convert_zero_payload(flat, saved=zero1["zero"], live=dense["zero"])
+        for i, per in payload["optimizer"]["state"].items():
+            for key, value in per.items():
+                assert torch.equal(back["optimizer"]["state"][i][key], value), (i, key)
+    else:  # rewrite the checkpoint in the ZeRO-1 layout, then restore it dense
+        path = os.path.join(ckpt.directory, "2", "state.pt")
+        torch.save(flat, path + ".zero")  # the loaded payload maps the old file: a new inode
+        os.replace(path + ".zero", path)
+        ckpt._write_meta(2, zero1)
+        tel = telemetry.Telemetry(worker="test-zero")
+        _, fresh, _ = _trainer(seed=8, steps=0)
+        with telemetry.current(tel), pytest.warns(UserWarning, match=r"ZeRO-1 \(shards=2"):
+            restore_zero_compat(ckpt, fresh, live_meta=dense)
+        assert tel.snapshot()["counters"]["resilience.ckpt_zero_reshards"] == 1
+        _assert_same(_flat(fresh), _flat(state))
     ckpt.close()
 
 

@@ -65,6 +65,7 @@ def test_import_pulls_in_no_jax_and_no_cuda_build():
     assert "maggy_tpu_torch.serve.__main__" in modules and "maggy_tpu_torch.serve.tier.host_pool" in modules
     assert "maggy_tpu_torch.serve.fleet.router" in modules and "maggy_tpu_torch.serve.fleet.autoscale" in modules
     assert "maggy_tpu_torch.ablation.ablator.loco" in modules and "maggy_tpu_torch.models.bert" in modules
+    assert "maggy_tpu_torch.parallel.ulysses" in modules and "maggy_tpu_torch.parallel.overlap" in modules
     assert out[1] == "0 False False"  # no kernel or batcher library loaded, no triton
 
 

@@ -23,9 +23,13 @@ process per rank on the CPU, against the JAX Trainer.
   ``preempted``; only rank 0's directory holds the checkpoint; a
   ``fit(resume="auto")`` from there resumes both ranks at that step and
   ends on the uninterrupted run's loss.
-* ``zero_lvl=1``, ``bucket_mb`` and ``elastic=True`` raise, naming their
-  ROADMAP items; the JAX package's ``DistributedConfig`` is no port config
-  and raises ``TypeError`` naming the port's.
+* ``zero_lvl=1`` (dp=2 with ZeRO-1) and ``sharding="dp", bucket_mb=0.25``
+  (the bucketed step) run through ``lagom``: each rank's trainer resolves
+  that mode from the spec the config stamps, and the final loss equals the
+  JAX Trainer's dense step under ``ShardingSpec(dp=2)`` within 2e-5.
+* ``elastic=True`` raises, naming its ROADMAP item; the JAX package's
+  ``DistributedConfig`` is no port config and raises ``TypeError`` naming
+  the port's.
 
 Every ``lagom`` call runs on a thread, waited for under ``TIMEOUT_S``.
 """
@@ -108,7 +112,8 @@ def fsdp_train(model, dataset, hparams, reporter, ctx):
     env = {k: os.environ[k] for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")}
     return {"metric": -metrics["loss"], "loss": metrics["loss"], "rank": ctx.process_index,
             "world": ctx.num_processes, "mesh": dict(zip(ctx.mesh.mesh_dim_names, ctx.mesh.mesh.shape)),
-            "env": env, "dtype": str(state.model.cfg.dtype)}
+            "env": env, "dtype": str(state.model.cfg.dtype), "mode": trainer._overlap_mode()[0],
+            "zero": trainer.checkpoint_meta()["zero"]}
 
 
 PREEMPT_STEPS, NOTICE_AFTER = 6, 3
@@ -179,7 +184,9 @@ def _rank_children():
     return [p for p in multiprocessing.active_children() if p.name.startswith("maggy-rank-")]
 
 
-def test_lagom_fsdp_matches_jax_trainer(port_env):
+def _jax_reference(**spec_kw):
+    """The JAX Trainer's weights (as the port's state dict), batches and
+    final loss under ``ShardingSpec(**spec_kw)``."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -191,7 +198,8 @@ def test_lagom_fsdp_matches_jax_trainer(port_env):
     from maggy_tpu.train import TrainContext as JTrainContext
     from maggy_tpu_torch.convert import decoder_params_from_flax
 
-    jctx = JTrainContext.create(JShardingSpec(fsdp=2), devices=jax.devices()[:2])
+    spec = JShardingSpec(**spec_kw)
+    jctx = JTrainContext.create(spec, devices=jax.devices()[:spec.num_devices])
     jcfg = JConfig.tiny(dtype=jnp.float32)
     tcfg = DecoderConfig.tiny(dtype=torch.float32)
     batches = packed_batches(jcfg.vocab_size, STEPS + 1)
@@ -200,7 +208,11 @@ def test_lagom_fsdp_matches_jax_trainer(port_env):
     init = {k: v.numpy() for k, v in decoder_params_from_flax(jax.device_get(unbox(jstate.params)), tcfg).items()}
     for batch in batches[1:]:
         jstate, jm = jtr.step(jstate, jtr.shard_batch(batch))
-    jloss = float(jm["loss"])
+    return init, batches, float(jm["loss"])
+
+
+def test_lagom_fsdp_matches_jax_trainer(port_env):
+    init, batches, jloss = _jax_reference(fsdp=2)
 
     config = DistributedConfig(
         module=Decoder(DecoderConfig.tiny(), device="meta"), dataset={"batches": batches, "init": init},
@@ -256,9 +268,29 @@ def test_a_rank_past_worker_timeout_is_killed(port_env):
     assert _rank_children() == []
 
 
+@pytest.mark.parametrize("kw, mode, zero", [
+    (dict(zero_lvl=1), "zero", {"stage": 1, "bucket_mb": None, "shards": 2}),
+    (dict(sharding="dp", bucket_mb=0.25), "bucket", {"stage": 0, "bucket_mb": None, "shards": 1}),
+], ids=["zero_lvl_1", "bucket_mb"])
+def test_zero_options_run_through_lagom(port_env, kw, mode, zero):
+    init, batches, jloss = _jax_reference(dp=2)
+    config = DistributedConfig(
+        module=Decoder(DecoderConfig.tiny(), device="meta"), dataset={"batches": batches, "init": init},
+        hparams={"lr": LR}, num_executors=2, mixed_precision=False, hb_interval=0.1, device="cpu", **kw,
+    )
+    result = _lagom(fsdp_train, config)
+    assert result["num_workers"] == 2 and result["loss"] == pytest.approx(jloss, rel=2e-5)
+    ranks = [json.loads(p.read_text()) for p in sorted(Path(port_env.root).rglob(".outputs.json"))]
+    for r in ranks:
+        assert r["mesh"] == {"stage": 1, "data": 2, "fsdp": 1, "expert": 1, "seq": 1, "tensor": 1}
+        assert (r["mode"], r["zero"]) == (mode, zero)
+        assert r["loss"] == pytest.approx(jloss, rel=2e-5)
+    assert _rank_children() == []
+
+
 @pytest.mark.parametrize("kw, item", [
-    (dict(zero_lvl=1), "7c"), (dict(bucket_mb=16.0), "7c"), (dict(elastic=True), "7f"),
-], ids=["zero_lvl_1", "bucket_mb", "elastic"])
+    (dict(elastic=True), "7f"),
+], ids=["elastic"])
 def test_unported_options_raise_naming_their_items(port_env, kw, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\b"):
         _lagom(fsdp_train, DistributedConfig(device="cpu", num_executors=2, **kw))

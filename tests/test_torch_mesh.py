@@ -217,18 +217,43 @@ def test_no_fallback(fake_world):
             TrainContext.create(ShardingSpec(tp=4))
 
 
+def _trainer_zero_stage_1():
+    from maggy_tpu_torch.train import trainer as trainer_mod
+
+    trainer_mod._overlap_fallback_warned = False  # the one-time warning, fresh
+    tr = TrainContext(ShardingSpec(), None, torch.device("cpu")).trainer(
+        Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), zero_stage=1)
+    with pytest.warns(UserWarning, match="no data mesh axis"):  # one device: nothing to shard over, as in JAX
+        mode = tr._overlap_mode()
+    return (tr.zero_stage, mode), (1, ("off", (), 1))
+
+
+# what raised naming items 7a2 and 7c until they were ported: each builds
+# now, as the JAX package's does
+@pytest.mark.parametrize("make", [
+    lambda: (ShardingSpec(sp=2, fsdp=2).axis_sizes(), JShardingSpec(sp=2, fsdp=2).axis_sizes()),
+    lambda: (ShardingSpec(sp=2, tp=2).axis_sizes(), JShardingSpec(sp=2, tp=2).axis_sizes()),
+    lambda: (ShardingSpec(zero_stage=1).zero_stage, JShardingSpec(zero_stage=1).zero_stage),
+    lambda: (ShardingSpec(bucket_mb=4.0).bucket_mb, JShardingSpec(bucket_mb=4.0).bucket_mb),
+    lambda: (DistributedConfig(zero_lvl=1, device="cpu").resolve_sharding(4),
+             ShardingSpec(dp=4, zero_stage=1)),
+    lambda: (DistributedConfig(zero_stage=1, device="cpu").resolve_sharding(4),
+             ShardingSpec(fsdp=4, zero_stage=1)),
+    lambda: (DistributedConfig(bucket_mb=8.0, device="cpu").resolve_sharding(4),
+             ShardingSpec(fsdp=4, bucket_mb=8.0)),
+    _trainer_zero_stage_1,
+], ids=["sp2_fsdp2", "sp2_tp2", "zero_stage", "bucket_mb", "zero_lvl_1", "config_zero_stage",
+        "config_bucket_mb", "trainer_zero_stage"])
+def test_ported_parts_build(make):
+    got, want = make()
+    assert got == want
+
+
 @pytest.mark.parametrize("make, item", [
-    (lambda: ShardingSpec(sp=2, fsdp=2), "7a2"),
-    (lambda: ShardingSpec(sp=2, tp=2), "7a2"),
-    (lambda: ShardingSpec(zero_stage=1), "7c"),
-    (lambda: ShardingSpec(bucket_mb=4.0), "7c"),
     (lambda: ShardingSpec(pp=2), "7e"),
     (lambda: ShardingSpec.preset("pp", 4), "7e"),
     (lambda: ShardingSpec(ep=2), "8"),
     (lambda: ShardingSpec.preset("ep", 4), "8"),
-    (lambda: DistributedConfig(zero_lvl=1, device="cpu"), "7c"),
-    (lambda: DistributedConfig(zero_stage=1, device="cpu"), "7c"),
-    (lambda: DistributedConfig(bucket_mb=8.0, device="cpu"), "7c"),
     (lambda: DistributedConfig(elastic=True, device="cpu"), "7f"),
     (lambda: DistributedConfig(max_restarts=1, device="cpu"), "7f"),
     (lambda: DistributedConfig(evaluator=True, device="cpu"), "7f"),
@@ -238,8 +263,6 @@ def test_no_fallback(fake_world):
     (lambda: DistributedConfig(min_slices=2, device="cpu"), "7f"),
     (lambda: TrainContext(ShardingSpec(), None, torch.device("cpu")).trainer(
         Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), n_microbatches=2), "7e"),
-    (lambda: TrainContext(ShardingSpec(), None, torch.device("cpu")).trainer(
-        Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), zero_stage=1), "7c"),
     (lambda: Trainer(Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), device="cpu",
                      membership=object()), "7f"),
 ], ids=lambda v: v if isinstance(v, str) else "")

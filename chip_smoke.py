@@ -199,7 +199,25 @@ Phases, each printing one line:
             and ZeRO-1's optimizer bytes a rank at most the dense layout's
             / dp + 10 %; each mode's step and peak beside dense dp=2's;
             budget 120 s. With one card ``"ran": false``.
-17. train.resume  the ``train`` configuration from disk: seeded tokens
+17. dist.pipe  on any number of cards, the single-stage path of
+            ``pipeline_grads_1f1b`` on the ``train`` configuration (a
+            ``DecoderStage`` holding the whole Decoder, from the ``train``
+            phase's seed): M = 4 microbatches a step, each the ``train``
+            batch (its rows 4 times), so the mean and the gradient are
+            ``train``'s own: every loss within 1e-5 and the first and last
+            grad norms within 1e-4 of ``train``'s, the flash kernels launched
+            16 / 16 / 16 a step (4 layers x 4 microbatches: no layer remat in
+            a stage). With two cards pp=2, with four pp=4, pp=2 x dp=2 and
+            pp=2 x tp=2, one process per card over NCCL from dist.lagom's
+            weights, ``n_microbatches = 2 pp``, each microbatch the ``train``
+            batch: every rank held to dist.lagom's single rank under
+            dist.mesh's limits (its gradient groups over the stages), the
+            flash launches exact for its stage (layers a stage x
+            microbatches, the forward twice on every stage but the last,
+            whose backward tick runs the only forward), each stage's step
+            beside M x the single rank's and the bubble (S-1)/(M+S-1), its
+            peak; budget 150 s. With fewer cards ``"ran": false``.
+18. train.resume  the ``train`` configuration from disk: seeded tokens
             written by ``write_sharded`` into a temporary directory, read
             through ``ShardedDataset`` and the native batcher (it must be
             native) into ``fit``'s prefetcher (depth 2). Run A takes 8
@@ -216,7 +234,7 @@ Phases, each printing one line:
             checkpoints. It prints the bytes a checkpoint, each save's
             blocked and commit time, the restore time, the step through
             the prefetcher and ``input_wait_ms``.
-18. train.remat  one forward and backward of the ``train`` configuration on
+19. train.remat  one forward and backward of the ``train`` configuration on
             one batch under ``remat=False``, ``"nothing"``, ``"dots"`` and
             ``"dots_attn"``, from the same parameters, gradients cleared
             between them: the loss and every gradient equal to
@@ -225,8 +243,9 @@ Phases, each printing one line:
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches: those of
 ``train``, ``ring.train``, ``lagom.ablation``'s Decoder study,
-``dist.lagom``'s rank, rank 0 of ``dist.mesh``, ``dist.seq`` and
-``dist.zero``, ``train.resume`` and ``train.remat``), the card's name and power limit, and as
+``dist.lagom``'s rank, rank 0 of ``dist.mesh``, ``dist.seq``, ``dist.zero``
+and ``dist.pipe`` (its single-stage part too), ``train.resume`` and
+``train.remat``), the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before that line. With no CUDA it exits non-zero at once.
 """
@@ -391,6 +410,12 @@ DIST_SEQ_BUDGET_S = 150
 DIST_ZERO_BUDGET_S = 120
 ZERO_BUCKET_MB = 64
 ZERO_BYTES_MARGIN = 0.10
+# dist.pipe: the single-stage 1F1B path over PIPE_SINGLE_MICRO microbatches
+# of the `train` batch, held to `train` under dist.lagom's limits; with two
+# or more cards the stages over NCCL (n_microbatches = 2 pp), each rank held
+# to dist.lagom's single rank under dist.mesh's limits
+PIPE_SINGLE_MICRO = 4
+DIST_PIPE_BUDGET_S = 150
 # train.resume: the `train` configuration from ROWS rows of tokens written as
 # SHARDS shards; run A takes STEPS steps, run B checkpoints every EVERY steps
 # until a preemption notice after step NOTICE, run C resumes it. A checkpoint
@@ -2979,8 +3004,9 @@ def grad_norms_by_group(model, state=None) -> dict:
     """The L2 norm of each group of the model's gradients (the norm scales,
     the embedding, attention, the MLP, ``lm_head``), every gradient
     gathered whole (``full_tensor``; a ZeRO-1 state's from its shards) on
-    every rank and summed there: a count of its own, apart from the
-    trainer's sharded norm. Every rank must call it."""
+    every rank and summed there, each group over the pipeline stages that
+    hold a share of it: a count of its own, apart from the trainer's
+    sharded norm. Every rank must call it."""
     import torch
 
     layout = getattr(state, "layout", None)
@@ -2995,6 +3021,18 @@ def grad_norms_by_group(model, state=None) -> dict:
                                                             if k in name)
         sums[group] = sums.get(group, 0.0) + float(g.float().square().sum())
         del g
+    pipe = getattr(state, "pipeline", None)
+    if pipe is not None:  # a stage holds its share of each group: summed over the stages
+        import torch.distributed as dist
+
+        from maggy_tpu_torch.parallel.mesh import stage_group
+
+        keys = ("norm", "embedding", "attn", "mlp", "lm_head")
+        p0 = next(model.parameters())
+        t = torch.tensor([sums.get(k, 0.0) for k in keys], dtype=torch.float64,
+                         device=getattr(p0, "to_local", lambda: p0)().device)
+        dist.all_reduce(t, group=stage_group(pipe.mesh))
+        sums = dict(zip(keys, t.tolist()))
     return {k: math.sqrt(v) for k, v in sums.items()}
 
 
@@ -3006,7 +3044,8 @@ def mesh_steps(ctx, model, steps: int, seq: int, reporter=None, rows_repeat: int
     ``rows_repeat`` > 1 stacks each batch's B rows that many times, so a
     mesh of more batch ranks than rows gets a row each: the token-weighted
     mean over repeated rows, and its gradient, are the B rows' own.
-    ``trainer_kw`` goes to ``ctx.trainer`` (``zero_stage``, ``bucket_mb``).
+    ``trainer_kw`` goes to ``ctx.trainer`` (``zero_stage``, ``bucket_mb``,
+    ``n_microbatches``).
     Returns the losses, the grad norms, the warm-up step's norm of each
     gradient group (:func:`grad_norms_by_group`) and how far the trainer's
     grad norm lies from theirs, the mean step, the peak memory, the
@@ -3045,13 +3084,14 @@ def mesh_steps(ctx, model, steps: int, seq: int, reporter=None, rows_repeat: int
     state, metrics = trainer.fit(state, data, steps, reporter=Record(), report_every=1, metrics_window=0)
     torch.cuda.synchronize()
     on_card = all(getattr(p, "to_local", lambda: p)().device == ctx.device for p in state.model.parameters())
+    pipe = {} if state.pipeline is None else dict(stage=state.pipeline.stage, n_micro=trainer._n_micro())
     return dict(metric=metrics["loss"], losses=[warm["loss"]] + losses, first_grad_norm=warm["grad_norm"],
                 params_on_card=on_card, group_grad_norms=groups,
                 grad_norm_count_rel=_rel(warm["grad_norm"], whole),
                 last_grad_norm=metrics["grad_norm"], step_ms=1e3 / metrics["steps_per_sec"],
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, state_gib=state_gib,
                 launches=dict(flash.LAUNCHES), ring_launches=dict(rf.LAUNCHES), opt_bytes=overlap.opt_state_bytes_per_device(state),
-                mode=trainer._overlap_mode()[0], seq_rank=ctx.mesh.get_local_rank("seq"),
+                mode=trainer._overlap_mode()[0], seq_rank=ctx.mesh.get_local_rank("seq"), **pipe,
                 device=str(ctx.device), mesh={k: v for k, v in zip(ctx.mesh.mesh_dim_names, ctx.mesh.mesh.shape)
                                               if v > 1})
 
@@ -3517,6 +3557,133 @@ def phase_dist_zero(torch, n_layers: int, seq: int, steps: int, card: str, singl
     return launches
 
 
+def pipe_launches_per_step(n_layers: int, pp: int, stage: int, n_micro: int) -> dict:
+    """What one pipelined train step launches on ``stage``: its layers for
+    each microbatch, the forward twice (the forward tick and the
+    recompute at the backward tick) on every stage but the last."""
+    per = n_layers // pp * n_micro
+    return {"flash_fwd": per * (1 if stage == pp - 1 else 2), "flash_bwd_dq": per, "flash_bwd_dkv": per}
+
+
+def pipe_single_stage(torch, cfg, seq: int, steps: int, train_ref: dict) -> dict:
+    """The single-stage path of ``pipeline_grads_1f1b`` on the ``train``
+    configuration: the ``train`` phase's weights (seed 0) and batches, each
+    step over PIPE_SINGLE_MICRO microbatches that are each the ``train``
+    batch, AdamW as ``train``'s. Its losses and grad norms against
+    ``train``'s, its launches, its step."""
+    from maggy_tpu_torch.models import Decoder
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.parallel.pipeline import pipeline_grads_1f1b
+    from maggy_tpu_torch.train import adamw, lm_loss_fn, synthetic_lm_batches
+    from maggy_tpu_torch.train.pipeline_adapter import decoder_pipeline_parts
+
+    parts = decoder_pipeline_parts(Decoder(cfg, device="meta"), 1)
+    stage = parts.make_stage(0, "cuda")
+    stage.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw(1e-4)(stage.parameters())
+    data = synthetic_lm_batches(cfg.vocab_size, B, seq, seed=0)
+    next(data)  # the sample batch the `train` phase's make_state takes
+    m = PIPE_SINGLE_MICRO
+
+    def loss_fn(st, y, tgt):
+        return lm_loss_fn(parts.head_fn(st, y), tgt)
+
+    losses, norms, stats = [], [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_steps = None
+    for i in range(1 + steps):
+        if i == 1:  # the warm-up step's launches and time stay out
+            torch.cuda.synchronize()
+            flash.reset_launches()
+            t_steps = time.perf_counter()
+        tokens = torch.as_tensor(next(data)["tokens"]).cuda().repeat(m, 1).view(m, B, seq)
+        opt.zero_grad(set_to_none=True)
+        loss, grads = pipeline_grads_1f1b(parts.stage_fn, loss_fn, stage, tokens, {"tokens": tokens},
+                                          first_fn=parts.first_fn, stage_takes_raw=True, stats=stats)
+        norms.append(float(torch.nn.utils.get_total_norm(list(grads.values()))))
+        opt.step()
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_steps) * 1e3 / steps
+    launches = dict(flash.LAUNCHES)
+    expected = {k: steps * v for k, v in pipe_launches_per_step(cfg.n_layers, 1, 0, m).items()}
+    loss_rel = [_rel(g, w) for g, w in zip(losses, train_ref["losses"])]
+    norm_rel = dict(first=_rel(norms[0], train_ref["first_grad_norm"]),
+                    last=_rel(norms[-1], train_ref["last_grad_norm"]))
+    ok = (len(loss_rel) == steps + 1 and max(loss_rel) <= TOL_DIST_LAGOM_LOSS_REL
+          and max(norm_rel.values()) <= TOL_DIST_LAGOM_GRAD_NORM_REL and launches == expected
+          and all(math.isfinite(v) for v in losses))
+    out = dict(ok=ok, microbatches=m, losses=losses, loss_rel=loss_rel, grad_norm_rel=norm_rel, launches=launches,
+               expected_launches=expected, step_ms=step_ms, stats=stats,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del stage, opt, grads
+    return out
+
+
+def phase_dist_pipe(torch, cfg, seq: int, steps: int, card: str, train_ref: dict, single: dict,
+                    train_step_ms) -> dict:
+    """Pipeline parallelism: the single-stage 1F1B path against ``train`` on
+    any card count, then the stages across cards against dist.lagom's
+    single rank. Returns the single-stage part's launches plus rank 0's of
+    every spec."""
+    import gc
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = pipe_single_stage(torch, cfg, seq, steps, train_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    one["step_ms_over_m_train_steps"] = None if train_step_ms is None else one["step_ms"] / (
+        PIPE_SINGLE_MICRO * train_step_ms)
+    cards = torch.cuda.device_count()
+    launches = dict(one["launches"])
+    common = dict(single_stage=one, tol=dict(loss_rel=TOL_MESH_LOSS_REL, grad_norm_rel=TOL_MESH_GRAD_NORM_REL,
+                                             group_grad_norm_rel=TOL_MESH_GROUP_NORM_REL,
+                                             grad_norm_count_rel=TOL_GRAD_NORM_COUNT_REL,
+                                             single_stage_loss_rel=TOL_DIST_LAGOM_LOSS_REL,
+                                             single_stage_grad_norm_rel=TOL_DIST_LAGOM_GRAD_NORM_REL), card=card)
+    if not one["ok"]:
+        emit("dist.pipe", ok=False, ran=False, cards=cards, phase_s=time.perf_counter() - t0, **common)
+        raise SystemExit("dist.pipe failed: the single-stage 1F1B path's losses, grad norms or launches disagree "
+                         "with the train phase's")
+    if cards < 2:
+        emit("dist.pipe", ok=True, ran=False, cards=cards, phase_s=time.perf_counter() - t0, **common)
+        return launches
+
+    def spec(key, pp, **kw):
+        n_micro = 2 * pp
+        rows = n_micro * kw.get("dp", 1)  # each microbatch on each data rank: the B train rows
+        return (key, dict(pp=pp, **kw), None, dict(n_microbatches=n_micro, rows_repeat=rows))
+
+    groups = [(4, [spec("pp4", 4), spec("pp2_dp2", 2, dp=2), spec("pp2_tp2", 2, tp=2)])] if cards >= 4 else [
+        (2, [spec("pp2", 2)])]
+    rows_out = []
+    for key, rank, res in run_spec_groups("dist.pipe", groups, cfg.n_layers, seq, steps, t0, DIST_PIPE_BUDGET_S):
+        pp = res["mesh"]["stage"]
+        m = res["n_micro"]
+        want = {k: (1 + steps) * v for k, v in pipe_launches_per_step(cfg.n_layers, pp, res["stage"], m).items()}
+        row = held_to_single(res, single)
+        row.update(spec=key, rank=rank, stage=res["stage"], microbatches=m, launches=res["launches"],
+                   expected_launches=want, bubble=(pp - 1) / (m + pp - 1),
+                   step_ms_over_m_single_steps=res["step_ms"] / (m * single["step_ms"]),
+                   state_gib=res["state_gib"])
+        row["ok"] = row["ok"] and res["launches"] == want
+        rows_out.append(row)
+        if rank == 0:
+            for name, count in res["launches"].items():
+                launches[name] = launches.get(name, 0) + count
+    phase_s = time.perf_counter() - t0
+    ok = all(r["ok"] for r in rows_out) and phase_s <= DIST_PIPE_BUDGET_S
+    emit("dist.pipe", ok=ok, ran=True, cards=cards, ranks=rows_out, phase_s=phase_s, budget_s=DIST_PIPE_BUDGET_S,
+         **common)
+    if not ok:
+        raise SystemExit("dist.pipe failed: a rank's losses, grad norms (whole, by group, or as its trainer counts "
+                         "them) or launches disagree with dist.lagom's single rank, or the phase ran past its budget")
+    return launches
+
+
 def _category(name: str) -> str:
     low = name.lower()
     # the three attention kernels, whether a flash or a ring wrapper launched them
@@ -3669,10 +3836,13 @@ def main(argv=None) -> int:
     # bucketed reduction over data, each rank held to the single rank
     seq_launches = phase_dist_seq(torch, N_LAYERS, S, TRAIN_STEPS, card, single)
     zero_launches = phase_dist_zero(torch, N_LAYERS, S, TRAIN_STEPS, card, single)
+    # pipeline stages: the single-stage 1F1B path held to `train`, then the
+    # stages across cards held to the single rank
+    pipe_launches = phase_dist_pipe(torch, cfg, S, TRAIN_STEPS, card, train_ref, single, train_step_ms)
     # the rest of the Trainer: checkpoints, the preemption save and resume
     # from sharded data, then the remat policies; their flash launches join
     # the `train` phase's in the kernels line
-    for more in (ablation_launches, single["launches"], mesh_launches, seq_launches, zero_launches,
+    for more in (ablation_launches, single["launches"], mesh_launches, seq_launches, zero_launches, pipe_launches,
                  phase_train_resume(torch, cfg, S, card, train_peak, train_step_ms),
                  phase_train_remat(torch, cfg, S, card)):
         for name, n in more.items():

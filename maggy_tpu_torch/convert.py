@@ -13,12 +13,19 @@ Layouts. flax ``DenseGeneral`` kernels are ``[in..., out...]``: ``wq``
 ``scan_layers=True`` every layer leaf is stacked on a leading layer axis
 under ``layers/layer/...``; otherwise layer ``i`` sits under
 ``layers_{i}/layer/...``.
+
+The JAX pipeline's stage-stacked tree (every leaf with a leading
+``[n_stages]`` axis, the layers ``[n_stages, L / n_stages, ...]``) maps onto
+the port's per-stage state dicts (:func:`decoder_stage_params_from_flax`),
+and optax's AdamW moments ``mu``/``nu``, which mirror the parameter tree,
+onto ``torch.optim.AdamW``'s per-parameter state
+(:func:`adamw_state_from_optax`).
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -59,6 +66,55 @@ def decoder_params_from_flax(params_np: Dict[str, Any], cfg) -> Dict[str, torch.
         k: torch.from_numpy(np.array(v)).to(cfg.param_dtype)
         for k, v in out.items()
     }
+
+
+def unstack_flax_stages(stage_tree: Dict[str, Any]) -> Dict[str, Any]:
+    """JAX's stage-stacked Decoder tree as the scanned Decoder's: the
+    embedding from stage 0, the final norm and head from the last stage,
+    the layers' ``[n_stages, L / n_stages, ...]`` merged into ``[L, ...]``
+    (``pipeline_adapter.unstack`` of the JAX package, on numpy arrays)."""
+    tree = stage_tree.get("params", stage_tree)
+    return {
+        "embedding": _arr(tree["embedding"])[0],
+        "layers": _map(tree["layers"], lambda x: _arr(x).reshape((-1,) + _arr(x).shape[2:])),
+        "final_norm": _map(tree["final_norm"], lambda x: _arr(x)[-1]),
+        **({"lm_head": _map(tree["lm_head"], lambda x: _arr(x)[-1])} if "lm_head" in tree else {}),
+    }
+
+
+def _stage_split(state_dict: Dict[str, Any], cfg, n_stages: int) -> List[Dict[str, Any]]:
+    from maggy_tpu_torch.models.transformer import Decoder
+    from maggy_tpu_torch.train.pipeline_adapter import decoder_pipeline_parts
+
+    return decoder_pipeline_parts(Decoder(cfg, device="meta"), n_stages).restack(state_dict)
+
+
+def decoder_stage_params_from_flax(stage_tree: Dict[str, Any], cfg, n_stages: int) -> List[Dict[str, torch.Tensor]]:
+    """One ``state_dict`` a stage (``DecoderStage``'s names, the
+    Decoder's) from the JAX pipeline Trainer's stage-stacked params;
+    ``cfg.scan_layers`` must be True, as the JAX pipeline requires."""
+    return _stage_split(decoder_params_from_flax(unstack_flax_stages(stage_tree), cfg), cfg, n_stages)
+
+
+def adamw_state_from_optax(opt_state, cfg, n_stages: Optional[int] = None):
+    """``torch.optim.AdamW``'s state from optax's ``adamw`` state (the
+    ``ScaleByAdamState`` in the chain: ``count``, and ``mu``/``nu``
+    mirroring the parameters): ``{name: {"step", "exp_avg", "exp_avg_sq"}}``
+    keyed by the port's parameter names, the moments laid out as the
+    parameters are. With ``n_stages`` the trees are JAX's stage-stacked
+    pipeline trees and the result is one dict a stage."""
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    count = float(np.asarray(adam.count))
+
+    def as_state_dict(tree):
+        if n_stages is not None:
+            tree = unstack_flax_stages(tree)
+        return decoder_params_from_flax(tree, cfg)
+
+    mu, nu = as_state_dict(adam.mu), as_state_dict(adam.nu)
+    out = {name: {"step": torch.tensor(count, dtype=torch.float32), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+           for name in mu}
+    return out if n_stages is None else _stage_split(out, cfg, n_stages)
 
 
 def _map(tree, fn):

@@ -8,9 +8,11 @@ device, so the mesh is built over an initialised default process group:
 NCCL with one card per rank, or gloo on the CPU. Axes of extent 1 stay in
 the mesh, as in JAX, so ``mesh["fsdp"]`` always names a dimension.
 
-The ``seq`` and ``data`` axes each have a process group of their own
-(:func:`seq_group`, :func:`data_group`): ring and Ulysses attention run
-over the first, the bucketed and ZeRO-1 reductions over the second.
+The ``seq``, ``data`` and ``stage`` axes each have a process group of
+their own (:func:`seq_group`, :func:`data_group`, :func:`stage_group`):
+ring and Ulysses attention run over the first, the bucketed and ZeRO-1
+reductions over the second, the pipeline's hand-offs between the
+previous and the next stage (:func:`stage_neighbors`) over the third.
 
 Host-side agreement (:func:`any_rank`, :func:`from_rank0`) runs over a gloo
 twin of the default group (:func:`host_group`), so a flag or a step number
@@ -24,7 +26,7 @@ from typing import Optional, Union
 
 import torch
 
-from maggy_tpu_torch.parallel.spec import AXIS_DATA, AXIS_SEQ, MESH_AXES, ShardingSpec
+from maggy_tpu_torch.parallel.spec import AXIS_DATA, AXIS_SEQ, AXIS_STAGE, MESH_AXES, ShardingSpec
 
 _ambient = threading.local()
 # how long a rank waits for its peers at each collective before NCCL or gloo
@@ -99,6 +101,25 @@ def data_group(mesh):
     """The process group of this rank's ranks along ``data``: the replicas
     a bucket's gradients are summed over."""
     return mesh.get_group(AXIS_DATA)
+
+
+def stage_group(mesh):
+    """The process group of this rank's ranks along ``stage``: one rank per
+    pipeline stage, in stage order, the others at this rank's coordinates
+    on every other axis."""
+    return mesh.get_group(AXIS_STAGE)
+
+
+def stage_neighbors(mesh):
+    """``(previous, next)``: the global ranks of the stages before and after
+    this rank's along ``stage`` (None past either end)."""
+    import torch.distributed as dist
+
+    group = stage_group(mesh)
+    s, n = mesh.get_local_rank(AXIS_STAGE), mesh.size(mesh.mesh_dim_names.index(AXIS_STAGE))
+    prev = dist.get_global_rank(group, s - 1) if s > 0 else None
+    nxt = dist.get_global_rank(group, s + 1) if s < n - 1 else None
+    return prev, nxt
 
 
 def host_group():

@@ -26,6 +26,11 @@ rules map them to mesh axes, and :func:`shard_decoder` lays the model out:
 * On a pure ``data`` mesh whose trainer runs the bucketed or ZeRO-1 step
   (:mod:`~maggy_tpu_torch.parallel.overlap`) :func:`shard_decoder` is not
   called: the trainer reduces the gradients over ``data`` itself.
+* Under pp (a ``stage`` axis above 1) each rank holds one pipeline stage
+  and :func:`shard_decoder` is not called either: the stage gets
+  :func:`tensor_parallelize` over ``tensor`` alone, its parameters are
+  replicated over ``data`` and ``fsdp`` as JAX's are, and the pipeline sums
+  their gradients over both.
 
 Two deliberate divergences from the JAX layout (ROADMAP "Deliberate
 divergences"): ``wk``/``wv`` are column-parallel too (``kv`` maps to
@@ -160,41 +165,13 @@ def shard_decoder(model, mesh):
     ``tensor``, then FSDP2 over (``data``, ``fsdp``). Every rank must call
     it. Afterwards each parameter is a DTensor (or, on a mesh with no axis
     above 1 that touches it, the plain tensor)."""
-    from torch import nn
-
-    from maggy_tpu_torch.models.transformer import Dense, RMSNorm
     from maggy_tpu_torch.parallel.mesh import mesh_shape
 
     shape = mesh_shape(mesh)
     tp = shape.get(AXIS_TENSOR, 1)
     check_tensor_parallel(model.cfg, tp)
     if tp > 1:
-        from torch.distributed.tensor import Replicate, Shard, distribute_module, distribute_tensor
-        from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
-
-        tp_mesh = mesh[AXIS_TENSOR]
-        plan = {}
-        for name, mod in model.named_modules():
-            if not isinstance(mod, Dense):
-                continue
-            out_axis, in_axis = logical_to_mesh_axes(logical_axes(name + ".weight"))
-            if out_axis == AXIS_TENSOR:
-                # lm_head's vocab-sharded logits are gathered for the loss
-                plan[name] = ColwiseParallel(output_layouts=Replicate()) if name == "lm_head" else ColwiseParallel()
-            elif in_axis == AXIS_TENSOR:
-                plan[name] = RowwiseParallel()
-        parallelize_module(model, tp_mesh, plan)
-        for mod in model.modules():
-            if isinstance(mod, RMSNorm):
-                # the scales replicated over `tensor` as DTensors, computed
-                # locally on the replicated residual stream: every parameter
-                # then lies on one mesh, as an optimizer's foreach kernels
-                # need (one list cannot mix plain tensors and DTensors)
-                distribute_module(mod, tp_mesh, input_fn=_replicated_inputs, output_fn=_local_output)
-        if logical_to_mesh_axes(logical_axes("embedding"))[0] == AXIS_TENSOR:
-            table = model.embedding
-            model.embedding = nn.Parameter(distribute_tensor(table.detach(), tp_mesh, [Shard(0)]),
-                                           requires_grad=table.requires_grad)
+        tensor_parallelize(model, mesh[AXIS_TENSOR])
     if fsdp_applies(shape):
         from torch.distributed.fsdp import fully_shard
 
@@ -209,4 +186,42 @@ def shard_decoder(model, mesh):
                 # plain SUM (gloo has no pre-multiplied sum)
                 mod.set_gradient_divide_factor(1.0)
                 mod.set_force_sum_reduction_for_comms(True)
+    return model
+
+
+def tensor_parallelize(model, tp_mesh):
+    """Tensor parallelism over the one-dimensional ``tp_mesh``, in place:
+    the projections by :data:`PORT_RULES` (``lm_head``'s logits gathered),
+    the norm scales replicated DTensors, the embedding table (where the
+    module has one) sharded over the vocabulary. ``model`` is a ``Decoder``
+    or a pipeline stage of one: any module whose ``Dense`` and ``RMSNorm``
+    submodules carry the Decoder's parameter names."""
+    from torch import nn
+    from torch.distributed.tensor import Replicate, Shard, distribute_module, distribute_tensor
+    from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
+
+    from maggy_tpu_torch.models.transformer import Dense, RMSNorm
+
+    plan = {}
+    for name, mod in model.named_modules():
+        if not isinstance(mod, Dense):
+            continue
+        out_axis, in_axis = logical_to_mesh_axes(logical_axes(name + ".weight"))
+        if out_axis == AXIS_TENSOR:
+            # lm_head's vocab-sharded logits are gathered for the loss
+            plan[name] = ColwiseParallel(output_layouts=Replicate()) if name == "lm_head" else ColwiseParallel()
+        elif in_axis == AXIS_TENSOR:
+            plan[name] = RowwiseParallel()
+    parallelize_module(model, tp_mesh, plan)
+    for mod in model.modules():
+        if isinstance(mod, RMSNorm):
+            # the scales replicated over `tensor` as DTensors, computed
+            # locally on the replicated residual stream: every parameter
+            # then lies on one mesh, as an optimizer's foreach kernels
+            # need (one list cannot mix plain tensors and DTensors)
+            distribute_module(mod, tp_mesh, input_fn=_replicated_inputs, output_fn=_local_output)
+    table = getattr(model, "embedding", None)
+    if table is not None and logical_to_mesh_axes(logical_axes("embedding"))[0] == AXIS_TENSOR:
+        model.embedding = nn.Parameter(distribute_tensor(table.detach(), tp_mesh, [Shard(0)]),
+                                       requires_grad=table.requires_grad)
     return model

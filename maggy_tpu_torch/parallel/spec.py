@@ -4,12 +4,14 @@
 Own copy of :mod:`maggy_tpu.parallel.spec` (the port imports nothing of the
 JAX package). A spec declares the mesh the JAX package lays out over six
 axes (pipeline stage, data, fsdp, expert, sequence, tensor); the port runs
-``dp``, ``fsdp``, ``sp`` and ``tp`` on a ``torch.distributed``
+``dp``, ``fsdp``, ``sp``, ``tp`` and ``pp`` on a ``torch.distributed``
 ``DeviceMesh`` (one rank per card), ``sp`` through ring or Ulysses
-attention over the ``seq`` axis, and ``zero_stage``/``bucket_mb`` as the
-bucketed and ZeRO-1 steps of :mod:`maggy_tpu_torch.parallel.overlap`.
-What it does not run yet raises ``NotImplementedError`` at construction,
-naming its ROADMAP queue 1 item: ``ep`` (item 8) and ``pp`` (7e).
+attention over the ``seq`` axis, ``pp`` as the pipeline schedules of
+:mod:`maggy_tpu_torch.parallel.pipeline` over the ``stage`` axis, and
+``zero_stage``/``bucket_mb`` as the bucketed and ZeRO-1 steps of
+:mod:`maggy_tpu_torch.parallel.overlap`. What it does not run yet raises
+``NotImplementedError`` at construction, naming its ROADMAP queue 1 item:
+``ep`` (item 8). As in JAX, ``pp`` with ``sp`` is refused by the trainer.
 """
 
 from __future__ import annotations
@@ -51,11 +53,15 @@ class ShardingSpec:
               width and the vocabulary;
     ``sp``    sequence parallelism over ``seq``: ring or Ulysses
               attention, alone or with any of the axes above;
+    ``pp``    pipeline parallelism over ``stage``: each rank runs one
+              stage of the Decoder's layers (GPipe and 1F1B), with
+              ``dp``, ``fsdp`` (both data parallel here: stage parameters
+              are replicated over them, as in JAX) and ``tp``;
     ``zero_stage`` 0 or 1: ZeRO-1 shards the optimizer state over
               ``data`` (a pure ``dp`` mesh; elsewhere it stays off, with
               a warning, as in JAX);
     ``bucket_mb`` the gradient-reduction bucket in MiB (None: unbucketed);
-    ``ep``, ``pp``: the JAX spec's fields, accepted only at 1.
+    ``ep``: the JAX spec's field, accepted only at 1.
     """
 
     dp: int
@@ -82,8 +88,6 @@ class ShardingSpec:
             raise ValueError(f"ShardingSpec.bucket_mb must be positive (or None), got {bucket_mb!r}")
         if ep > 1:
             _refuse(f"expert parallelism (ep={ep}, with moe.py)", "8")
-        if pp > 1:
-            _refuse(f"pipeline parallelism (pp={pp})", "7e")
         for name, v in values.items():
             object.__setattr__(self, name, v)
 
@@ -99,8 +103,8 @@ class ShardingSpec:
     def preset(cls, name: str, num_devices: int) -> "ShardingSpec":
         """The JAX package's presets: "dp"/"ddp" pure data parallel,
         "fsdp"/"zero"/"zero3" full sharding, "tp" tensor parallel, "2d"
-        fsdp x tp, "sp" sequence parallel; "pp" and "ep" raise, naming
-        their items."""
+        fsdp x tp, "sp" sequence parallel, "pp" pipeline stages; "ep"
+        raises, naming its item."""
         n = num_devices
         if name in ("dp", "ddp"):
             return cls(dp=n)

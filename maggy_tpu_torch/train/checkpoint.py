@@ -46,6 +46,15 @@ tensor by ``broadcast``), each rank keeping its shards: a
 checkpoint moves between meshes, and between a mesh and one device, as
 orbax's restore does in the JAX package.
 
+Under pp (a state whose ``TrainState.pipeline`` is set: each rank holds one
+pipeline stage) a save gathers every stage's parameters and AdamW moments
+to rank 0 over the host group (:func:`~maggy_tpu_torch.train.
+pipeline_adapter.stage_state` on each stage, tensor shards gathered
+first), and rank 0 writes the whole Decoder's state in the one-device
+format; a restore has rank 0 read it and send each rank its stage's share.
+So a pp checkpoint restores onto another pp degree, onto pp x tp and onto
+one device, and a one-device checkpoint onto pp.
+
 A save commits atomically, as orbax's does: the step is written into a
 temporary directory whose name is not a step number, its file and the
 directory are fsync'd, the directory is renamed to ``<step>`` and the parent
@@ -392,7 +401,7 @@ class Checkpointer:
 
         model_sd: Dict[str, Any] = {}
         optim_sd: Dict[str, Any] = {}
-        payload = None
+        payload = shares = None
         status = None
         if dist.get_rank() == 0:
             try:
@@ -406,7 +415,9 @@ class Checkpointer:
                     payload = self._load(s)
                     if convert is not None:
                         payload = convert(payload)
-                    if getattr(state, "layout", None) is None:
+                    if getattr(state, "pipeline", None) is not None:
+                        shares = _pipeline_shares(state, payload)
+                    elif getattr(state, "layout", None) is None:
                         model_sd, optim_sd = _fqn_state_dicts(state, payload)
                     else:  # broadcast as it is below
                         _check_params(state, payload["params"])
@@ -427,6 +438,15 @@ class Checkpointer:
             raise FileNotFoundError(value)
         if kind != "ok":
             raise ValueError(f"restore failed on rank 0: {value}")
+        if getattr(state, "pipeline", None) is not None:  # each rank its stage's share
+            from maggy_tpu_torch.parallel.mesh import host_group
+            from maggy_tpu_torch.train.pipeline_adapter import load_stage_state
+
+            share = [None]
+            dist.scatter_object_list(share, shares, src=0, group=host_group())
+            with telemetry.get().span("checkpoint_restore", step=value):
+                load_stage_state(state, share[0])
+            return state
         if getattr(state, "layout", None) is not None:  # plain tensors, replicated or flat-sharded
             with telemetry.get().span("checkpoint_restore", step=value):
                 _copy_layout(state, _broadcast_tree(payload, next(state.model.parameters()).device))
@@ -473,8 +493,10 @@ class Checkpointer:
 
 def _collective(state) -> bool:
     """Whether a save or restore of ``state`` is a collective of its mesh:
-    its parameters are DTensors, or it is a bucketed or ZeRO-1 state."""
-    return _sharded(state.model) or getattr(state, "layout", None) is not None
+    its parameters are DTensors, or it is a bucketed, ZeRO-1 or pipeline
+    state."""
+    return (_sharded(state.model) or getattr(state, "layout", None) is not None
+            or getattr(state, "pipeline", None) is not None)
 
 
 def _sharded(model) -> bool:
@@ -507,6 +529,8 @@ def _full_payload(step: int, state: Any) -> Optional[Dict[str, Any]]:
 
     if getattr(state, "layout", None) is not None:
         return _layout_payload(step, state)
+    if getattr(state, "pipeline", None) is not None:
+        return _pipeline_payload(step, state)
     model_sd, optim_sd = get_state_dict(
         state.model, state.optimizer, options=StateDictOptions(full_state_dict=True, cpu_offload=True)
     )
@@ -525,6 +549,63 @@ def _full_payload(step: int, state: Any) -> Optional[Dict[str, Any]]:
             ],
         },
     }
+
+
+def _pipeline_payload(step: int, state: Any) -> Optional[Dict[str, Any]]:
+    """:func:`_full_payload` of a pipeline state: every stage's whole
+    parameters and optimizer state, gathered to rank 0 over the host group
+    from the first rank of each stage and merged in the Decoder's order."""
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.parallel.mesh import host_group
+    from maggy_tpu_torch.train.pipeline_adapter import stage_state
+
+    pipe = state.pipeline
+    part = stage_state(state)  # every rank: the tensor shards are gathered
+    rank0 = dist.get_rank() == 0
+    gathered = [None] * dist.get_world_size() if rank0 else None
+    dist.gather_object((pipe.stage, part) if pipe.leader else None, gathered, dst=0, group=host_group())
+    if not rank0:
+        return None
+    stages = dict(g for g in gathered if g is not None)
+    parts = pipe.parts
+    params = parts.unstack([stages[s]["params"] for s in range(parts.n_stages)])
+    optim = parts.unstack([stages[s]["optimizer"] for s in range(parts.n_stages)])
+    names = list(params)
+    return {
+        "step": int(step),
+        "params": params,
+        "optimizer": {
+            "state": {i: optim[n] for i, n in enumerate(names) if n in optim},
+            "param_groups": [{**stages[0]["hyper"], "params": list(range(len(names)))}],
+        },
+    }
+
+
+def _pipeline_shares(state: Any, payload: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Rank 0's split of a one-device payload into each global rank's
+    stage (:func:`~maggy_tpu_torch.train.pipeline_adapter.stage_state`'s
+    form); raises ValueError when it is not this Decoder's."""
+    from maggy_tpu_torch.parallel.spec import AXIS_STAGE
+
+    pipe = state.pipeline
+    parts = pipe.parts
+    names = list(payload["params"])
+    want = {n: p.shape for s in range(parts.n_stages) for n, p in parts.make_stage(s, "meta").named_parameters()}
+    if names != list(want) or any(tuple(payload["params"][n].shape) != tuple(want[n]) for n in names):
+        raise ValueError(
+            f"checkpoint parameters differ from the pipelined Decoder's (missing {sorted(set(want) - set(names))}, "
+            f"unexpected {sorted(set(names) - set(want))}, or in another order or shape)"
+        )
+    osd = payload["optimizer"]
+    optim = {names[int(i)]: v for i, v in osd["state"].items()}
+    hyper = {k: v for k, v in osd["param_groups"][0].items() if k != "params"}
+    shares = [{"step": int(payload["step"]), "params": p, "optimizer": o, "hyper": hyper}
+              for p, o in zip(parts.restack(payload["params"]), parts.restack(optim))]
+    ranks = pipe.mesh.mesh  # the global ranks, laid out over the mesh's axes
+    axis = pipe.mesh.mesh_dim_names.index(AXIS_STAGE)
+    stage_of_rank = {r: s for s in range(ranks.shape[axis]) for r in ranks.select(axis, s).flatten().tolist()}
+    return [shares[stage_of_rank[r]] for r in range(ranks.numel())]
 
 
 def _fqn_state_dicts(state: Any, payload: Dict[str, Any]):

@@ -12,9 +12,12 @@ and splits each sequence over ``seq`` (ring attention,
 :mod:`maggy_tpu_torch.parallel.ringattention`, or Ulysses,
 :mod:`maggy_tpu_torch.parallel.ulysses`); on a pure ``dp`` mesh,
 ``zero_stage``/``bucket_mb`` select the bucketed and ZeRO-1 steps of
-:mod:`maggy_tpu_torch.parallel.overlap`. Pipelines (ROADMAP queue 1 item
-7e), elastic membership (7f) and the autopilot (item 9) belong to later
-slices of the port.
+:mod:`maggy_tpu_torch.parallel.overlap`; a ``stage`` axis above 1 trains
+the Decoder in pipeline stages on the 1F1B schedule
+(:mod:`maggy_tpu_torch.parallel.pipeline`,
+:mod:`maggy_tpu_torch.train.pipeline_adapter`). Elastic membership (ROADMAP
+queue 1 item 7f) and the autopilot (item 9) belong to later slices of the
+port.
 
 Where the JAX step is a pure function returning a new state, ``step``
 updates the parameters and optimizer in place and returns the same state
@@ -29,7 +32,6 @@ import math
 import os
 import sys
 import time
-import warnings
 from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -39,16 +41,20 @@ from torch import nn
 
 from maggy_tpu_torch.parallel import overlap
 from maggy_tpu_torch.parallel import sharding as shd
-from maggy_tpu_torch.parallel.mesh import any_rank, data_group, from_rank0, mesh_shape, seq_group
+from maggy_tpu_torch.parallel.mesh import any_rank, data_group, from_rank0, mesh_shape, seq_group, stage_group
 from maggy_tpu_torch.parallel.ringattention import LocalRing, ProcessGroupRing
 from maggy_tpu_torch.parallel.spec import (
     AXIS_DATA,
     AXIS_EXPERT,
     AXIS_FSDP,
     AXIS_SEQ,
+    AXIS_STAGE,
     AXIS_TENSOR,
     ShardingSpec,
 )
+# JAX keeps the one-time overlap warning in its pipeline adapter; so does
+# the port, and this module re-exports it
+from maggy_tpu_torch.train.pipeline_adapter import warn_overlap_unbucketed
 from maggy_tpu_torch.util import resolve_device
 
 Batch = Dict[str, Any]
@@ -74,15 +80,22 @@ def _lm_loss_parts(
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     ll = logp.gather(-1, targets[..., None])[..., 0]
+    mask = _effective_mask(batch)
+    if mask is None:
+        return ll.sum(), torch.tensor(float(ll.numel()), device=ll.device)
+    return (ll * mask).sum(), mask.sum()
+
+
+def _effective_mask(batch: Batch) -> Optional[torch.Tensor]:
+    """:func:`lm_loss_fn`'s target mask of a (sub)batch, ``loss_mask`` and
+    same-segment, or None when the batch has neither (every target counts)."""
     mask = batch.get("loss_mask")
     mask = None if mask is None else mask[:, 1:].float()
     seg = batch.get("segment_ids")
     if seg is not None:
         same = (seg[:, 1:] == seg[:, :-1]).float()
         mask = same if mask is None else mask * same
-    if mask is None:
-        return ll.sum(), torch.tensor(float(ll.numel()), device=ll.device)
-    return (ll * mask).sum(), mask.sum()
+    return mask
 
 
 def lm_loss_fn(logits: torch.Tensor, batch: Batch) -> torch.Tensor:
@@ -217,19 +230,20 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def _global_norm(grads) -> torch.Tensor:
+def _global_norm(grads, holders: Optional[int] = None) -> torch.Tensor:
     """The L2 norm of every gradient, whole, as a plain tensor equal on
     every rank: each rank sums the squares of the shards it holds, each
     divided by the number of ranks holding that shard (a DTensor's
-    replicas, or every rank for a plain tensor), and one all-reduce over
-    the world adds them up."""
+    replicas, or every rank holding the tensor: ``holders``, by default the
+    world; a pipeline stage's ranks under pp), and one all-reduce over the
+    world adds them up."""
     import torch.distributed as dist
 
     world = dist.get_world_size()
     dtensor = sys.modules.get("torch.distributed.tensor")
     total = None
     for g in grads:
-        copies = world
+        copies = holders or world
         if dtensor is not None and isinstance(g, dtensor.DTensor):
             for extent, placement in zip(g.device_mesh.mesh.shape, g.placements):
                 if not (placement.is_replicate() or placement.is_partial()):  # Shard, FSDP2's strided shard
@@ -241,26 +255,6 @@ def _global_norm(grads) -> torch.Tensor:
         raise ValueError("no gradients to take the norm of")
     dist.all_reduce(total)
     return total.sqrt()
-
-
-# warn once per process that a requested overlap configuration stays on the
-# dense path (JAX keeps this in train/pipeline_adapter.py, ROADMAP queue 1
-# item 7e; it lives here until that item is ported)
-_overlap_fallback_warned = False
-
-
-def warn_overlap_unbucketed(reason: str) -> None:
-    """Warn once per process that a requested gradient-overlap
-    configuration falls back to the unbucketed path; training proceeds
-    unchanged."""
-    global _overlap_fallback_warned
-    if _overlap_fallback_warned:
-        return
-    _overlap_fallback_warned = True
-    warnings.warn(
-        f"gradient overlap disabled: {reason}; training continues on the unbucketed path",
-        stacklevel=3,
-    )
 
 
 def classification_loss_fn(logits: torch.Tensor, batch: Batch) -> torch.Tensor:
@@ -296,6 +290,10 @@ class TrainState:
     # (:class:`~maggy_tpu_torch.parallel.overlap.OverlapLayout`); None on
     # the dense path
     layout: Any = None
+    # under pp: this rank's stage and the parts
+    # (:class:`~maggy_tpu_torch.train.pipeline_adapter.PipelineLayout`);
+    # ``model`` is then the stage (a ``DecoderStage``)
+    pipeline: Any = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -340,7 +338,20 @@ class Trainer:
     ZeRO-1 step (each bucket reduce-scattered, AdamW on this rank's flat
     shard, the parameters all-gathered back), both in
     :mod:`~maggy_tpu_torch.parallel.overlap`; there FSDP2 does not wrap the
-    model. Elsewhere they stay off with JAX's one-time warning."""
+    model. Elsewhere they stay off with JAX's one-time warning.
+
+    A mesh whose ``stage`` axis is above 1 (``pp``) trains the Decoder in
+    stages: each rank holds one :class:`~maggy_tpu_torch.train.
+    pipeline_adapter.DecoderStage` (its layers; the embedding on stage 0,
+    the final norm and ``lm_head`` on the last) and ``step`` runs
+    :func:`~maggy_tpu_torch.parallel.pipeline.pipeline_grads_1f1b` over
+    ``n_microbatches`` microbatches (default ``2 * pp``) of its rows. As in
+    JAX, stage parameters are replicated over ``data`` and ``fsdp`` (no
+    FSDP2: their gradients are all-reduced over both, in
+    :func:`~maggy_tpu_torch.parallel.overlap.plan_buckets` buckets), laid
+    out over ``tensor`` by the DTensor rules of :mod:`~maggy_tpu_torch.parallel.sharding`, and a masked or packed
+    loss is rescaled to the dense global token-weighted mean. ``pp`` with
+    ``sp`` is refused, as JAX's is."""
 
     model: nn.Module
     optimizer: Callable[..., torch.optim.Optimizer]
@@ -352,6 +363,9 @@ class Trainer:
     mesh: Any = None
     zero_stage: int = 0
     bucket_mb: Optional[float] = None
+    # pipeline parallelism: microbatches a step when the mesh's stage axis
+    # is above 1 (None: 2 * pp); must divide each batch rank's rows
+    n_microbatches: Optional[int] = None
 
     def __post_init__(self):
         if self.membership is not None:
@@ -380,7 +394,8 @@ class Trainer:
             )
         self._overlap_memo = None
         self._overlap_layout = None
-        if self.mesh is not None:
+        self._pp_parts = None
+        if self.mesh is not None and self.pp == 1:  # under pp, make_state raises JAX's refusals
             cfg = getattr(self.model, "cfg", None)
             if cfg is None or not hasattr(self.model, "layers"):
                 raise NotImplementedError(
@@ -399,6 +414,143 @@ class Trainer:
     @property
     def _mesh_shape(self) -> Dict[str, int]:
         return mesh_shape(self.mesh) if self.mesh is not None else {}
+
+    # ---------------------------------------------------------------- pipeline
+
+    @property
+    def pp(self) -> int:
+        """Pipeline stages: the mesh's ``stage`` extent (1: off)."""
+        return self._mesh_shape.get(AXIS_STAGE, 1)
+
+    def _n_micro(self) -> int:
+        return self.n_microbatches or 2 * self.pp
+
+    def _pipeline_parts(self):
+        """The Decoder's pipeline parts for this mesh, built once; raises
+        JAX's refusals (pp with sp, and those of
+        :func:`~maggy_tpu_torch.train.pipeline_adapter.decoder_pipeline_parts`)."""
+        if self._pp_parts is None:
+            from maggy_tpu_torch.train.pipeline_adapter import decoder_pipeline_parts
+
+            shape = self._mesh_shape
+            if shape.get(AXIS_SEQ, 1) > 1:
+                raise ValueError(
+                    "pp>1 does not compose with sp>1: the 1F1B schedule runs each stage op under a lax.cond whose "
+                    "predicate varies per stage, and a seq-ring collective inside a non-uniform cond deadlocks "
+                    "(verified on the CPU mesh). Use pp x tp / pp x ep / pp x dp/fsdp, or sp without pp."
+                )
+            self._pp_parts = decoder_pipeline_parts(self.model, self.pp, tp=shape.get(AXIS_TENSOR, 1),
+                                                    mesh=self.mesh, ep=shape.get(AXIS_EXPERT, 1))
+        return self._pp_parts
+
+    @property
+    def _dpf(self) -> int:
+        shape = self._mesh_shape
+        return shape.get(AXIS_DATA, 1) * shape.get(AXIS_FSDP, 1)
+
+    def _batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the batch ranks (``data``, ``fsdp``)."""
+        import torch.distributed as dist
+
+        t = t.clone()
+        for axis in shd.batch_group_axes(self._mesh_shape):
+            dist.all_reduce(t, group=self.mesh.get_group(axis))
+        return t
+
+    def _pp_batch_parts(self, batch: Batch, parts, n_micro: int):
+        """JAX's shared plumbing of the pipelined step and evaluation:
+        this rank's rows cut into ``n_micro`` microbatches, the raw channel
+        stream (packed positions and segment ids ride as int channels, so
+        every stage masks and positions its attention), the targets, and
+        the last stage's loss, rescaled for a masked or packed batch so the
+        microbatch losses add up to the dense global token-weighted mean.
+        Returns ``(raw microbatches, targets, loss_pp, activation)``."""
+        tokens = _model_inputs(batch)[0]
+        rows, dpf = tokens.shape[0], self._dpf
+        if rows % n_micro:
+            raise ValueError(
+                f"batch size {rows * dpf} does not split into n_microbatches={n_micro} microbatches of whole rows "
+                f"on each of the mesh's data x fsdp extent ({dpf}) ranks ({rows} rows a rank); set "
+                "Trainer(n_microbatches=...) to a divisor or grow the batch"
+            )
+
+        def split(a):
+            return a.reshape((n_micro, rows // n_micro) + tuple(a.shape[1:]))
+
+        tgts = {k: split(v) for k, v in batch.items()}
+        mask_norm = None
+        if self.loss_fn is lm_loss_fn:
+            m = _effective_mask(batch)
+            if m is not None:
+                # the global effective-mask sum: per-microbatch masked means
+                # rescaled by it add up to the dense objective
+                mask_norm = torch.clamp(self._batch_sum(m.sum()), min=1.0)
+
+        def loss_pp(stage, y, tgt):
+            loss = self.loss_fn(parts.head_fn(stage, y), tgt)
+            if mask_norm is not None:
+                local = torch.clamp(_effective_mask(tgt).sum(), min=1.0)
+                # the schedule divides the sum of these by dpf * n_micro
+                loss = loss * local * (dpf * n_micro) / mask_norm
+            return loss
+
+        if "segment_ids" in batch or "positions" in batch:
+            positions = batch.get("positions")
+            if positions is None:
+                positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+            channels = [tokens, positions.to(tokens.dtype)]
+            if batch.get("segment_ids") is not None:
+                channels.append(batch["segment_ids"].to(tokens.dtype))
+            raw = torch.stack(channels, dim=-1)
+        else:
+            raw = tokens
+        cfg = self.model.cfg
+        activation = ((rows // n_micro, tokens.shape[1], cfg.d_model), cfg.dtype)
+        return split(raw), tgts, loss_pp, activation
+
+    def _pp_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """The pipelined train step: 1F1B over this rank's microbatches,
+        the gradients summed over the batch ranks, the grad norm over every
+        stage, each parameter counted once, then AdamW on this stage. The
+        loss is every rank's (summed over the stages and batch ranks).
+        ``n_microbatches`` is read at each step: a change takes effect at
+        the next one (nothing is compiled)."""
+        from maggy_tpu_torch.parallel.pipeline import pipeline_grads_1f1b
+
+        import torch.distributed as dist
+
+        parts = self._pipeline_parts()
+        raw, tgts, loss_pp, activation = self._pp_batch_parts(self._to_device(batch), parts, self._n_micro())
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _ = pipeline_grads_1f1b(parts.stage_fn, loss_pp, state.model, raw, tgts, mesh=self.mesh,
+                                      first_fn=parts.first_fn, stage_takes_raw=True, activation=activation)
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        gnorm = _global_norm(grads, holders=dist.get_world_size() // self.pp)
+        state.optimizer.step()
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        metrics = {"loss": loss, "aux_loss": aux, "total_loss": loss + aux, "grad_norm": gnorm,
+                   "step": torch.tensor(state.step)}
+        state.step += 1
+        return state, metrics
+
+    def _make_pipeline_state(self, seed_or_generator, params) -> TrainState:
+        """This rank's stage, its weights the Decoder's own (the stage's
+        entries of ``params``, or the stage's share of the seeded draws),
+        laid out over ``tensor`` where tp > 1, and its optimizer."""
+        from maggy_tpu_torch.train.pipeline_adapter import PipelineLayout
+
+        parts = self._pipeline_parts()
+        self._overlap_mode()  # zero/bucket on a pp mesh: the one-time warning
+        stage = self.mesh.get_local_rank(AXIS_STAGE)
+        module = parts.make_stage(stage, self.device)
+        if params is not None:
+            module.load_state_dict(parts.restack(params)[stage])
+        else:
+            module.reset_parameters(self._generator(seed_or_generator))
+        if self._mesh_shape.get(AXIS_TENSOR, 1) > 1:
+            shd.tensor_parallelize(module, self.mesh[AXIS_TENSOR])
+        return TrainState(module, self.optimizer(module.parameters()), 0,
+                          pipeline=PipelineLayout(parts, stage, self.mesh))
 
     # ---------------------------------------------------------------- overlap
 
@@ -431,7 +583,12 @@ class Trainer:
         manual = tuple(a for a in (AXIS_DATA,) if shape.get(a, 1) > 1)
         blockers = sorted(a for a in (AXIS_FSDP, AXIS_TENSOR, AXIS_SEQ, AXIS_EXPERT) if shape.get(a, 1) > 1)
         mode = off
-        if blockers:
+        if self.pp > 1:
+            warn_overlap_unbucketed(
+                f"pipeline mesh (stage={self.pp}): per-stage bucketing is not implemented, the 1F1B schedule "
+                "keeps its own collectives"
+            )
+        elif blockers:
             warn_overlap_unbucketed(
                 f"mesh axes {blockers} are laid out by FSDP2, DTensor or the sequence split; the overlap "
                 "step needs a pure data mesh (fsdp already shards optimizer state)"
@@ -543,8 +700,15 @@ class Trainer:
         ``params`` or the same seeded generator, so a sharded run starts
         from exactly the weights of a dense one; only then is the model
         laid out on the mesh (:func:`~maggy_tpu_torch.parallel.sharding.
-        shard_decoder`) and the optimizer built over the shards."""
+        shard_decoder`) and the optimizer built over the shards.
+
+        Under pp the state holds this rank's stage alone (a
+        ``DecoderStage`` in ``TrainState.model``, the trainer's model left
+        as it is): its share of ``params``, or of the seeded draws of the
+        whole Decoder, so the stages together hold a dense run's weights."""
         _model_inputs(sample_batch)  # the batch names the model's inputs
+        if self.pp > 1:
+            return self._make_pipeline_state(seed_or_generator, params)
         model = self.model
         if any(p.is_meta for p in model.parameters()):
             model.to_empty(device=self.device)
@@ -553,11 +717,7 @@ class Trainer:
         if params is not None:
             model.load_state_dict(params)
         else:
-            gen = seed_or_generator
-            if not isinstance(gen, torch.Generator):
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(int(seed_or_generator))
-            model.reset_parameters(gen)
+            model.reset_parameters(self._generator(seed_or_generator))
         ring = self._group_ring
         if ring is not None and self.mesh is None:  # the parameters are replicated: rank 0's everywhere
             import torch.distributed as dist
@@ -573,18 +733,32 @@ class Trainer:
             shd.shard_decoder(model, self.mesh)
         return TrainState(model, self.optimizer(model.parameters()), 0)
 
+    def _generator(self, seed_or_generator: Union[int, torch.Generator]) -> torch.Generator:
+        """The generator weights are drawn from: the one given, or one on
+        this trainer's device seeded with the int."""
+        if isinstance(seed_or_generator, torch.Generator):
+            return seed_or_generator
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed_or_generator))
+        return gen
+
     def state_shardings_for(self, sample_batch: Optional[Batch] = None) -> Dict[str, Tuple]:
         """Each parameter's layout on the mesh, from the rules and the
         shapes alone (nothing is allocated): ``{name: per dim, the mesh
         axes that split it}``; the optimizer's moments follow their
         parameter. FSDP2 splits dim 0 over ``fsdp`` (``data`` replicates),
-        tensor parallelism the dim the port's rules map to ``tensor``."""
+        tensor parallelism the dim the port's rules map to ``tensor``. Under
+        pp: the parameters of this rank's stage, over ``tensor`` only."""
         if self._layout_memo is not None:
             return self._layout_memo
         shape = self._mesh_shape
         fsdp = self.mesh is not None and shd.fsdp_applies(shape) and shape.get(AXIS_FSDP, 1) > 1
+        named = self.model.named_parameters()
+        if self.pp > 1:  # this rank's stage, replicated over data and fsdp as in JAX
+            fsdp = False
+            named = self._pipeline_parts().make_stage(self.mesh.get_local_rank(AXIS_STAGE), "meta").named_parameters()
         out = {}
-        for name, p in self.model.named_parameters():
+        for name, p in named:
             dims = [[] for _ in range(p.dim())]
             if fsdp and dims:
                 dims[0].append(AXIS_FSDP)
@@ -596,10 +770,18 @@ class Trainer:
         self._layout_memo = out
         return out
 
-    def adopt_state(self, state: TrainState, sample_batch: Batch) -> TrainState:
+    def adopt_state(self, state, sample_batch: Batch) -> TrainState:
         """Place a foreign state (a dense one, or one restored elsewhere)
         onto this trainer's layout: its full parameters and optimizer
-        state, sharded here, at its step."""
+        state, sharded here, at its step. Under pp ``state`` may also be a
+        pipeline state of this trainer's degree: ``{"step", "params",
+        "optimizer", "hyper"}``, each of the first two a list of one
+        :func:`~maggy_tpu_torch.train.pipeline_adapter.stage_state` entry a
+        stage (what
+        :func:`~maggy_tpu_torch.train.pipeline_adapter.convert_pipeline_state`
+        returns); each rank takes its stage's."""
+        if self.pp > 1:
+            return self._adopt_pipeline_state(state, sample_batch)
         from torch.distributed.checkpoint.state_dict import (
             StateDictOptions,
             get_model_state_dict,
@@ -636,6 +818,31 @@ class Trainer:
         mine.step = state.step
         return mine
 
+    def _adopt_pipeline_state(self, state, sample_batch: Batch) -> TrainState:
+        if isinstance(state, TrainState):
+            if state.layout is not None or state.pipeline is not None:
+                raise ValueError("adopt_state under pp takes a dense state or a pipeline state dict; a ZeRO-1, "
+                                 "bucketed or pipeline TrainState moves through a checkpoint")
+            params = {n: p.detach() for n, p in state.model.named_parameters()}
+            index = {p: n for n, p in state.model.named_parameters()}
+            optim = {index[p]: dict(v) for p, v in state.optimizer.state.items()}
+            hyper = {k: v for k, v in state.optimizer.param_groups[0].items() if k != "params"}
+            state = {"step": state.step, "params": [params], "optimizer": [optim], "hyper": hyper}
+            parts = self._pipeline_parts()
+            state.update(params=parts.restack(params), optimizer=parts.restack(optim))
+        if len(state["params"]) != self.pp:
+            raise ValueError(
+                f"a pipeline state of {len(state['params'])} stages on a pp={self.pp} trainer: re-stage it "
+                "with convert_pipeline_state first"
+            )
+        from maggy_tpu_torch.train.pipeline_adapter import load_stage_state
+
+        stage = self.mesh.get_local_rank(AXIS_STAGE)
+        mine = self.make_state(0, sample_batch, params=state["params"][stage])
+        load_stage_state(mine, {"step": state["step"], "params": state["params"][stage],
+                                      "optimizer": state["optimizer"][stage], "hyper": state["hyper"]})
+        return mine
+
     def _to_device(self, batch: Batch) -> Dict[str, torch.Tensor]:
         return {
             k: torch.as_tensor(v).to(self.device, non_blocking=True)
@@ -647,7 +854,9 @@ class Trainer:
     def step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One AdamW step; metrics as in the JAX dense step. Under a
         ProcessGroupRing or a mesh the batch is this rank's
-        :meth:`shard_batch`."""
+        :meth:`shard_batch`; under pp the step is the 1F1B pipeline's."""
+        if self.pp > 1:
+            return self._pp_step(state, batch)
         batch = self._to_device(batch)
         logits = state.model(*_model_inputs(batch))
         term, loss = self._losses(logits, batch)
@@ -683,9 +892,42 @@ class Trainer:
     @torch.no_grad()
     def eval_logits(self, state: TrainState, batch: Batch) -> torch.Tensor:
         """Full logits for one batch (this rank's chunk of them under a
-        ProcessGroupRing)."""
+        ProcessGroupRing, its rows under a mesh).
+
+        MEMORY CAVEAT under pp, as in JAX: the stages are unstacked into a
+        whole Decoder on every rank (:meth:`dense_model`), which holds
+        every parameter at once — fine for tests and small models, a spike
+        at the scale pipelines exist for. Prefer :meth:`evaluate` there."""
+        model = self.dense_model(state) if self.pp > 1 else state.model
         batch = self._to_device(self.shard_batch(batch))
-        return state.model(*_model_inputs(batch))
+        return model(*_model_inputs(batch))
+
+    @torch.no_grad()
+    def dense_model(self, state: TrainState) -> nn.Module:
+        """Under pp: the whole Decoder on this rank's device, its weights
+        gathered from every stage (each stage's broadcast over the stage
+        group, tensor shards gathered first). Every rank must call it."""
+        import torch.distributed as dist
+
+        pipe = state.pipeline
+        group, parts = stage_group(self.mesh), pipe.parts
+        mine = dict(state.model.named_parameters())
+        full = {}
+        for s in range(parts.n_stages):
+            for name, p in parts.make_stage(s, "meta").named_parameters():
+                if s == pipe.stage:
+                    t = mine[name]
+                    t = (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().contiguous()
+                else:
+                    t = torch.empty(p.shape, dtype=p.dtype, device=self.device)
+                dist.broadcast(t, dist.get_global_rank(group, s), group=group)
+                full[name] = t
+        from maggy_tpu_torch.models.transformer import Decoder
+
+        model = Decoder(self.model.cfg, device="meta")
+        model.to_empty(device=self.device)
+        model.load_state_dict(full)
+        return model
 
     @torch.no_grad()
     def evaluate(
@@ -702,7 +944,10 @@ class Trainer:
         (``prefetch`` batches ahead; ``MAGGY_TPU_PREFETCH`` sets the default,
         0 disables) capped at ``num_batches``, so the iterator is never
         over-consumed; the losses add up on the device and are read once at
-        the end."""
+        the end. Under pp the loss flows through the stages
+        (:func:`~maggy_tpu_torch.parallel.pipeline.pipeline_forward_loss`):
+        each rank holds its stage and one microbatch's activation, never
+        the whole model."""
         if num_batches < 1:
             raise ValueError("evaluate needs num_batches >= 1")
         from maggy_tpu_torch import telemetry
@@ -729,21 +974,33 @@ class Trainer:
                 else:
                     batch = self.shard_batch(next(data_iter))
                 batch = self._to_device(batch)
-                loss = self._losses(state.model(*_model_inputs(batch)), batch)[1]
+                if self.pp > 1:
+                    loss = self._pp_eval_loss(state, batch)
+                else:
+                    loss = self._losses(state.model(*_model_inputs(batch)), batch)[1]
                 total = loss if total is None else total + loss
         finally:
             if prefetcher is not None:
                 prefetcher.close()
         return {"loss": float(total) / num_batches}
 
+    def _pp_eval_loss(self, state: TrainState, batch: Batch) -> torch.Tensor:
+        from maggy_tpu_torch.parallel.pipeline import pipeline_forward_loss
+
+        parts = self._pipeline_parts()
+        raw, tgts, loss_pp, activation = self._pp_batch_parts(batch, parts, self._n_micro())
+        loss, _ = pipeline_forward_loss(parts.stage_fn, loss_pp, state.model, raw, tgts, mesh=self.mesh,
+                                        first_fn=parts.first_fn, stage_takes_raw=True, activation=activation)
+        return loss
+
     def checkpoint_meta(self) -> Dict[str, Any]:
         """The active system configuration, recorded by ``Checkpointer.save``
         beside every state this trainer checkpoints; restores compare it
         with the live trainer's and warn on a mismatch. The keys are the
         JAX trainer's: the mesh's axes of extent above 1 (the ring's ``sp``
-        under a ring), the devices and processes, no microbatching, the
-        model's compute dtype and the effective ZeRO layout (what
-        ``restore_zero_compat`` converts across)."""
+        under a ring; ``stage`` under pp), the devices and processes,
+        ``n_microbatches``, the model's compute dtype and the effective ZeRO
+        layout (what ``restore_zero_compat`` converts across)."""
         import torch.distributed as dist
 
         ring = self.ring
@@ -760,7 +1017,7 @@ class Trainer:
             "mesh_axes": mesh_axes,
             "num_devices": num_devices,
             "n_processes": dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1,
-            "n_microbatches": None,
+            "n_microbatches": self.n_microbatches,
             "dtype": str(getattr(cfg, "dtype", None)) if cfg is not None else None,
             "zero": {
                 "stage": 1 if mode == "zero" else 0,
@@ -1140,15 +1397,15 @@ class TrainContext:
                 bucket_mb: Optional[float] = None) -> Trainer:
         """A Trainer over this context's mesh (or ring). The overlap knobs
         default to the spec's (``DistributedConfig`` stamps them there);
-        explicit arguments win."""
-        if n_microbatches is not None:
-            raise NotImplementedError("microbatched pipelines (n_microbatches) are ROADMAP queue 1 item 7e")
+        explicit arguments win. ``n_microbatches`` is the pipeline's
+        (``pp > 1``; default ``2 * pp``)."""
         if zero_stage is None:
             zero_stage = self.spec.zero_stage
         if bucket_mb is None:
             bucket_mb = self.spec.bucket_mb
         return Trainer(model, optimizer, device=self.device, loss_fn=loss_fn, ring=self.ring,
-                       mesh=self._trainer_mesh, zero_stage=int(zero_stage), bucket_mb=bucket_mb)
+                       mesh=self._trainer_mesh, zero_stage=int(zero_stage), bucket_mb=bucket_mb,
+                       n_microbatches=n_microbatches)
 
     def shard_batch(self, global_batch: Batch) -> Batch:
         """Every rank passes the same global batch and gets its own part:

@@ -218,9 +218,9 @@ def test_no_fallback(fake_world):
 
 
 def _trainer_zero_stage_1():
-    from maggy_tpu_torch.train import trainer as trainer_mod
+    from maggy_tpu_torch.train import pipeline_adapter
 
-    trainer_mod._overlap_fallback_warned = False  # the one-time warning, fresh
+    pipeline_adapter._overlap_fallback_warned = False  # the one-time warning, fresh
     tr = TrainContext(ShardingSpec(), None, torch.device("cpu")).trainer(
         Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), zero_stage=1)
     with pytest.warns(UserWarning, match="no data mesh axis"):  # one device: nothing to shard over, as in JAX
@@ -228,8 +228,8 @@ def _trainer_zero_stage_1():
     return (tr.zero_stage, mode), (1, ("off", (), 1))
 
 
-# what raised naming items 7a2 and 7c until they were ported: each builds
-# now, as the JAX package's does
+# what raised naming items 7a2, 7c and 7e until they were ported: each
+# builds now, as the JAX package's does
 @pytest.mark.parametrize("make", [
     lambda: (ShardingSpec(sp=2, fsdp=2).axis_sizes(), JShardingSpec(sp=2, fsdp=2).axis_sizes()),
     lambda: (ShardingSpec(sp=2, tp=2).axis_sizes(), JShardingSpec(sp=2, tp=2).axis_sizes()),
@@ -242,16 +242,18 @@ def _trainer_zero_stage_1():
     lambda: (DistributedConfig(bucket_mb=8.0, device="cpu").resolve_sharding(4),
              ShardingSpec(fsdp=4, bucket_mb=8.0)),
     _trainer_zero_stage_1,
+    lambda: (ShardingSpec(pp=2).axis_sizes(), JShardingSpec(pp=2).axis_sizes()),
+    lambda: (ShardingSpec.preset("pp", 4).axis_sizes(), JShardingSpec.preset("pp", 4).axis_sizes()),
+    lambda: (TrainContext(ShardingSpec(), None, torch.device("cpu")).trainer(
+        Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), n_microbatches=2).n_microbatches, 2),
 ], ids=["sp2_fsdp2", "sp2_tp2", "zero_stage", "bucket_mb", "zero_lvl_1", "config_zero_stage",
-        "config_bucket_mb", "trainer_zero_stage"])
+        "config_bucket_mb", "trainer_zero_stage", "pp2", "pp_preset", "trainer_n_microbatches"])
 def test_ported_parts_build(make):
     got, want = make()
     assert got == want
 
 
 @pytest.mark.parametrize("make, item", [
-    (lambda: ShardingSpec(pp=2), "7e"),
-    (lambda: ShardingSpec.preset("pp", 4), "7e"),
     (lambda: ShardingSpec(ep=2), "8"),
     (lambda: ShardingSpec.preset("ep", 4), "8"),
     (lambda: DistributedConfig(elastic=True, device="cpu"), "7f"),
@@ -261,8 +263,6 @@ def test_ported_parts_build(make):
     (lambda: DistributedConfig(driver_addr="localhost:1", device="cpu"), "7f"),
     (lambda: DistributedConfig(data_plane="local", device="cpu"), "7f"),
     (lambda: DistributedConfig(min_slices=2, device="cpu"), "7f"),
-    (lambda: TrainContext(ShardingSpec(), None, torch.device("cpu")).trainer(
-        Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), n_microbatches=2), "7e"),
     (lambda: Trainer(Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), device="cpu",
                      membership=object()), "7f"),
 ], ids=lambda v: v if isinstance(v, str) else "")
@@ -279,6 +279,7 @@ def test_new_modules_import_no_jax():
         "import maggy_tpu_torch.parallel.mesh, maggy_tpu_torch.parallel.sharding\n"
         "import maggy_tpu_torch.config.distributed, maggy_tpu_torch.core.driver.distributed\n"
         "import maggy_tpu_torch.core.executors.distributed, maggy_tpu_torch.experiment\n"
+        "import maggy_tpu_torch.parallel.pipeline, maggy_tpu_torch.train.pipeline_adapter\n"
         "print(sorted(sys.modules))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -288,3 +289,4 @@ def test_new_modules_import_no_jax():
     modules = ast.literal_eval(out.splitlines()[0])
     assert [m for m in modules if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "maggy_tpu"}] == []
     assert "maggy_tpu_torch.core.executors.distributed" in modules
+    assert "maggy_tpu_torch.parallel.pipeline" in modules and "maggy_tpu_torch.train.pipeline_adapter" in modules

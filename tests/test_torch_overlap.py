@@ -40,7 +40,7 @@ from maggy_tpu_torch.models import Decoder, DecoderConfig
 from maggy_tpu_torch.parallel import ShardingSpec, make_mesh
 from maggy_tpu_torch.parallel import overlap as ovl
 from maggy_tpu_torch.train import Trainer, adamw
-from maggy_tpu_torch.train import trainer as trainer_mod
+from maggy_tpu_torch.train import pipeline_adapter as port_adapter
 
 CAPS = [None, float("inf"), 100 / 2**20, 120 / 2**20, 1.0]
 
@@ -289,7 +289,7 @@ def test_overlap_mode_resolution_matches_jax(fake_world, key):
                          ids=["fsdp", "seq", "tensor", "one_device"])
 def test_overlap_fallback_warns_once_as_jax(fake_world, monkeypatch, spec_kw, blocker):
     monkeypatch.setattr(pipeline_adapter, "_overlap_fallback_warned", False)
-    monkeypatch.setattr(trainer_mod, "_overlap_fallback_warned", False)
+    monkeypatch.setattr(port_adapter, "_overlap_fallback_warned", False)
     spec = ShardingSpec(**spec_kw)
     fake_world(spec.num_devices)
     with pytest.warns(UserWarning, match="unbucketed") as ref:
@@ -304,7 +304,7 @@ def test_overlap_fallback_warns_once_as_jax(fake_world, monkeypatch, spec_kw, bl
         assert _jax_trainer(JShardingSpec(**spec_kw), bucket_mb=4)._overlap_mode()[0] == "off"
     assert not [w for w in rec if "unbucketed" in str(w.message)]
     # and after a reset it warns again
-    monkeypatch.setattr(trainer_mod, "_overlap_fallback_warned", False)
+    monkeypatch.setattr(port_adapter, "_overlap_fallback_warned", False)
     with pytest.warns(UserWarning, match=blocker):
         _port_trainer(spec, zero_stage=1)._overlap_mode()
 

@@ -200,11 +200,11 @@ def test_decoder_through_local_ring_matches_dense():
 
 @pytest.mark.parametrize("preset", ["dp", "fsdp", "tp", "sp", "pp", "2d", "ep"])
 def test_sharding_spec_matches_jax(preset):
-    """The presets the port runs (dp, fsdp, tp, 2d, sp) are the JAX
+    """The presets the port runs (dp, fsdp, tp, 2d, sp, pp) are the JAX
     package's; a preset that turns on an axis the port does not run yet is
-    refused where JAX builds it, naming its item (pp 7e, ep 8)."""
+    refused where JAX builds it, naming its item (ep 8)."""
     assert MESH_AXES == J_MESH_AXES
-    refused = {"pp": "queue 1 item 7e", "ep": "queue 1 item 8"}
+    refused = {"ep": "queue 1 item 8"}
     for n in (1, 4, 8):
         ref = JShardingSpec.preset(preset, n)
         if preset not in refused or n == 1:
@@ -234,11 +234,11 @@ def test_refused_calls_raise(case):
         with pytest.raises(ValueError, match="TrainContext.create"):
             TrainContext.local(ShardingSpec(sp=2, dp=2), device="cpu")
     elif case == "zero_stage":  # no data axis beside the ring: ZeRO-1 stays off, with JAX's warning
-        from maggy_tpu_torch.train import trainer as trainer_mod
+        from maggy_tpu_torch.train import pipeline_adapter
 
         ctx = TrainContext.local(ShardingSpec(sp=2, zero_stage=1), device="cpu")
         tr = ctx.trainer(Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3))
-        trainer_mod._overlap_fallback_warned = False
+        pipeline_adapter._overlap_fallback_warned = False
         with pytest.warns(UserWarning, match=r"\['seq'\]"):
             assert tr._overlap_mode() == ("off", (), 1)
     elif case == "no_process_group":

@@ -217,7 +217,33 @@ Phases, each printing one line:
             whose backward tick runs the only forward), each stage's step
             beside M x the single rank's and the bubble (S-1)/(M+S-1), its
             peak; budget 150 s. With fewer cards ``"ran": false``.
-18. train.resume  the ``train`` configuration from disk: seeded tokens
+18. pod.elastic  pod mode: a user script run by ``python -m
+            maggy_tpu_torch.run --workers 2 --elastic 1`` as a subprocess
+            (this process frees its cached card memory first), whose
+            ``lagom(train_fn, DistributedConfig(sharding="dp"))`` trains the
+            ``train`` widths at depth 1 (1.27 B fp32 parameters, B=2,
+            S=2048) in both processes: on one card two replicas on
+            ``cuda:0`` (``data_plane="local"``), on two or more
+            ``--global-mesh`` dp=2 over NCCL (rank r on card r, every loss
+            within 5e-4 of one process's); one checkpoint, rank 0's. Six
+            steps, a synchronous checkpoint after step 2; generation 0's
+            rank 1 SIGKILLs itself after step 3. The launcher must restart
+            the generation, which resumes at step 2 and ends at step 6 on
+            both ranks; its step-3 losses equal generation 0's bit for bit;
+            on one card the replicas' losses are equal; the flash launches
+            2 / 1 / 1 a step on every rank. Each process's start to first
+            step, the save and restore, the restart's wall time and the
+            peak a rank; budget 120 s.
+19. pod.hpo  ``python -m maggy_tpu_torch.run --workers 2 --respawn 1``
+            over ``lagom(train_fn, HyperparameterOptConfig(num_trials=3))``:
+            the driver's process runs one local trial executor on
+            ``cuda:0``, the worker process leases ``cuda:0`` through
+            ``MAGGY_TPU_WORKER_DEVICES=0``; each trial 2 steps of the depth-1
+            Decoder. The worker SIGKILLs itself inside its first trial: the
+            launcher respawns it, the lost trial is requeued, all 3 trials
+            finish once, each with exact flash launches. Each trial's mean
+            step and the study's wall time; budget 90 s.
+20. train.resume  the ``train`` configuration from disk: seeded tokens
             written by ``write_sharded`` into a temporary directory, read
             through ``ShardedDataset`` and the native batcher (it must be
             native) into ``fit``'s prefetcher (depth 2). Run A takes 8
@@ -234,7 +260,7 @@ Phases, each printing one line:
             checkpoints. It prints the bytes a checkpoint, each save's
             blocked and commit time, the restore time, the step through
             the prefetcher and ``input_wait_ms``.
-19. train.remat  one forward and backward of the ``train`` configuration on
+21. train.remat  one forward and backward of the ``train`` configuration on
             one batch under ``remat=False``, ``"nothing"``, ``"dots"`` and
             ``"dots_attn"``, from the same parameters, gradients cleared
             between them: the loss and every gradient equal to
@@ -244,7 +270,8 @@ Phases, each printing one line:
 Then a ``{"kernels": [...]}`` line (each kernel's launches: those of
 ``train``, ``ring.train``, ``lagom.ablation``'s Decoder study,
 ``dist.lagom``'s rank, rank 0 of ``dist.mesh``, ``dist.seq``, ``dist.zero``
-and ``dist.pipe`` (its single-stage part too), ``train.resume`` and
+and ``dist.pipe`` (its single-stage part too), every rank of
+``pod.elastic`` and every trial of ``pod.hpo``, ``train.resume`` and
 ``train.remat``), the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before that line. With no CUDA it exits non-zero at once.
@@ -416,6 +443,20 @@ ZERO_BYTES_MARGIN = 0.10
 # to dist.lagom's single rank under dist.mesh's limits
 PIPE_SINGLE_MICRO = 4
 DIST_PIPE_BUDGET_S = 150
+# pod.elastic and pod.hpo: the `train` widths at depth POD_LAYERS (fp32
+# parameters, ~1.27 B of them: two processes fit one card), each process
+# started by `python -m maggy_tpu_torch.run`. pod.elastic: POD_STEPS steps, a
+# synchronous checkpoint after step POD_SAVE_AT, rank 1 of generation 0
+# killed after step POD_KILL_AT; pod.hpo: POD_HPO_TRIALS trials of
+# POD_HPO_STEPS steps, the worker killed inside its first trial
+POD_LAYERS = 1
+POD_STEPS = 6
+POD_SAVE_AT = 2
+POD_KILL_AT = 3
+POD_ELASTIC_BUDGET_S = 120
+POD_HPO_TRIALS = 3
+POD_HPO_STEPS = 2
+POD_HPO_BUDGET_S = 90
 # train.resume: the `train` configuration from ROWS rows of tokens written as
 # SHARDS shards; run A takes STEPS steps, run B checkpoints every EVERY steps
 # until a preemption notice after step NOTICE, run C resumes it. A checkpoint
@@ -3684,6 +3725,443 @@ def phase_dist_pipe(torch, cfg, seq: int, steps: int, card: str, train_ref: dict
     return launches
 
 
+def run_launcher(flags, script: str, timeout_s: float, env_extra=None):
+    """``python -m maggy_tpu_torch.run [flags] script`` as its own process
+    group: every process it starts is killed with it past ``timeout_s``, and
+    any left behind once it exits. Returns its exit code, stdout and
+    stderr."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""), **(env_extra or {}))
+    proc = subprocess.Popen([sys.executable, "-m", "maggy_tpu_torch.run", *flags, script], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate(timeout=30)
+        err += f"\n(chip_smoke: the launcher was killed after {timeout_s} s)"
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return proc.returncode, out, err
+
+
+def _dump_json(path: str, obj) -> None:
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def pod_elastic_train(model, hparams, reporter, ctx):
+    """pod.elastic's train_fn, run by every rank of every generation in its
+    own process: the ``train`` steps from seed 0 (batch ``i + 1`` at step
+    ``i``), resumed from the latest checkpoint, a synchronous save after
+    step ``save_at``; rank 1 of generation 0 SIGKILLs itself after step
+    ``kill_at``, once the checkpoint is committed. There is one
+    checkpoint: rank 0's, under a process group, as every mesh checkpoint
+    is; of two replicas (one-rank groups) rank 0 writes it and both resume
+    from it, since they hold the same state. After every step the rank
+    writes its losses, flash launches and times to
+    ``<out>/g<generation>.r<rank>.json``, with its start-up timeline
+    (seconds from the script's first line)."""
+    import signal
+
+    import torch
+
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.train import Checkpointer, adamw, synthetic_lm_batches
+
+    gen, rank = int(os.environ["MAGGY_TPU_GENERATION"]), int(os.environ["MAGGY_TPU_PARTITION"])
+    cuda = ctx.device.type == "cuda"  # the CPU only in a rehearsal
+    t0 = float(os.environ["MT_POD_T0"])
+    path = os.path.join(hparams["out"], f"g{gen}.r{rank}.json")
+    rec = dict(gen=gen, rank=rank, device=str(ctx.device), world=ctx.num_processes, losses={}, launches={},
+               timeline=dict(imported=float(os.environ["MT_POD_T_IMPORTED"]) - t0, train_fn=time.time() - t0))
+    trainer = ctx.trainer(model, adamw(1e-4))
+    data = synthetic_lm_batches(model.cfg.vocab_size, B, hparams["seq"], seed=0)
+    batches = [next(data) for _ in range(hparams["steps"] + 1)]
+    state = trainer.make_state(0, batches[0])
+    if cuda:
+        torch.cuda.synchronize()
+    rec["timeline"]["state"] = time.time() - t0
+    saves = ctx.num_processes > 1 or rank == 0  # a mesh's save is every rank's call
+    ckpt = Checkpointer(hparams["ckpt"], max_to_keep=1, async_save=False)
+    start = ckpt.latest_step() or 0
+    if start:
+        t = time.perf_counter()
+        state = ckpt.restore(state, step=start, expect_meta=trainer.checkpoint_meta())
+        if cuda:
+            torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t
+    rec["start"] = start
+    flash.reset_launches()
+    for i in range(start, hparams["steps"]):
+        state, m = trainer.step(state, trainer.shard_batch(batches[i + 1]))
+        rec["losses"][str(i + 1)] = float(m["loss"])
+        rec["launches"][str(i + 1)] = dict(flash.LAUNCHES)
+        if "first_step_s" not in rec:
+            rec["first_step_at"] = time.time()
+            rec["first_step_s"] = rec["timeline"]["first_step"] = rec["first_step_at"] - t0
+        if i + 1 == hparams["save_at"] and saves:
+            t = time.perf_counter()
+            ckpt.save(i + 1, state, meta=trainer.checkpoint_meta())
+            ckpt.wait()
+            rec["save_s"] = time.perf_counter() - t
+        _dump_json(path, rec)
+        if gen == 0 and rank == 1 and i + 1 == hparams["kill_at"]:
+            deadline = time.time() + 60
+            while not os.path.isdir(os.path.join(hparams["ckpt"], str(hparams["save_at"]))) and time.time() < deadline:
+                time.sleep(0.05)
+            rec["killed_at"] = time.time()
+            _dump_json(path, rec)
+            os.kill(os.getpid(), signal.SIGKILL)
+    ckpt.close()
+    rec.update(end_step=int(state.step), grad_norm=float(m["grad_norm"]),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
+    rec["timeline"]["returned"] = time.time() - t0
+    _dump_json(path, rec)
+    return {"metric": rec["losses"][str(hparams["steps"])], "end_step": float(state.step)}
+
+
+def pod_hpo_train(hparams, reporter, devices, trial_dir):
+    """pod.hpo's train_fn: a Decoder of POD_LAYERS layers at ``train``'s
+    widths on the trial's lease, POD_HPO_STEPS steps. The driver's executor
+    holds its first trial until the worker holds one; the first worker's
+    first trial SIGKILLs its process after one step. Each trial writes
+    ``start``, ``killed`` and ``done`` records under ``<out>``."""
+    import gc
+    import signal
+
+    import torch
+
+    from maggy_tpu_torch.models import Decoder, DecoderConfig
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.train import Trainer, adamw, synthetic_lm_batches
+
+    out, role = hparams["out"], os.environ.get("MAGGY_TPU_ROLE")
+    cuda = devices[0].type == "cuda"  # the CPU only in a rehearsal
+    marker = os.path.join(out, "worker_holds_a_trial")
+    tid = os.path.basename(trial_dir.rstrip("/"))
+    name = f"{tid}.{role}.{os.getpid()}"
+    rec = dict(trial=tid, role=role, pid=os.getpid(), device=str(devices[0]), lr=hparams["lr"])
+    kill = role == "worker" and not os.path.exists(marker)
+    _dump_json(os.path.join(out, f"start.{name}.json"), rec)
+    if role == "worker":
+        open(marker, "a").close()
+    else:
+        deadline = time.time() + 60
+        while not os.path.exists(marker) and time.time() < deadline:
+            time.sleep(0.05)
+    preset, kw = hparams["model"]
+    cfg = getattr(DecoderConfig, preset)(**kw)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(devices[0])
+    trainer = Trainer(Decoder(cfg, device="meta"), adamw(hparams["lr"]), device=devices[0])
+    data = synthetic_lm_batches(cfg.vocab_size, B, hparams["seq"], seed=0)
+    state = trainer.make_state(0, next(data))
+    flash.reset_launches()
+    losses, step_ms = [], []
+    for i in range(POD_HPO_STEPS):
+        t = time.perf_counter()
+        state, m = trainer.step(state, next(data))
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        reporter.broadcast(losses[-1], step=i)
+        if kill:
+            _dump_json(os.path.join(out, f"killed.{name}.json"), dict(rec, losses=losses))
+            os.kill(os.getpid(), signal.SIGKILL)
+    rec.update(losses=losses, step_ms=step_ms, launches=dict(flash.LAUNCHES),
+               peak_gib=torch.cuda.max_memory_allocated(devices[0]) / 2**30 if cuda else None)
+    del state, trainer
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()  # the other process shares the card
+    _dump_json(os.path.join(out, f"done.{name}.json"), rec)
+    return {"metric": losses[-1]}
+
+
+POD_ELASTIC_SCRIPT = """
+import os, time
+os.environ["MT_POD_T0"] = repr(time.time())
+import json, sys
+sys.path.insert(0, {repo!r})
+import torch
+import maggy_tpu_torch
+if {global_mesh}:
+    assert maggy_tpu_torch.initialize_data_plane(device={device!r}), "the launcher exports MAGGY_TPU_COORDINATOR"
+import chip_smoke
+from maggy_tpu_torch import experiment
+from maggy_tpu_torch.config import DistributedConfig
+from maggy_tpu_torch.models import Decoder, DecoderConfig
+os.environ["MT_POD_T_IMPORTED"] = repr(time.time())
+
+result = experiment.lagom(chip_smoke.pod_elastic_train, DistributedConfig(
+    module=Decoder(DecoderConfig.{preset}(**{model_kw!r}), device="meta"), hparams={hparams!r},
+    sharding="dp", data_plane={plane!r}, hb_interval={hb}, worker_timeout={timeout}, device={device!r}))
+if result.get("role") is None:
+    with open(os.path.join({out!r}, "result.json"), "w") as f:
+        json.dump(result, f)
+chip_smoke._dump_json(os.path.join({out!r}, "lagom_returned.g" + os.environ["MAGGY_TPU_GENERATION"] + ".r"
+                                   + os.environ["MAGGY_TPU_PARTITION"] + ".json"),
+                      dict(gen=os.environ["MAGGY_TPU_GENERATION"], rank=os.environ["MAGGY_TPU_PARTITION"],
+                           t0=float(os.environ["MT_POD_T0"]), at=time.time()))
+"""
+
+POD_HPO_SCRIPT = """
+import os, time
+os.environ["MT_POD_T0"] = repr(time.time())
+import json, sys
+sys.path.insert(0, {repo!r})
+import torch
+import chip_smoke
+from maggy_tpu_torch import Searchspace, experiment
+from maggy_tpu_torch.config import HyperparameterOptConfig
+
+config = HyperparameterOptConfig(
+    num_trials={trials}, optimizer="randomsearch", searchspace=Searchspace(lr=("DOUBLE", [1e-5, 1e-4])),
+    direction="min", es_policy="none", seed=0, num_executors=2, hb_interval={hb}, worker_timeout={timeout},
+    device={device!r})
+config.hparams = {hparams!r}
+result = experiment.lagom(chip_smoke.pod_hpo_train, config)
+if result.get("role") is None:
+    with open(os.path.join({out!r}, "result.json"), "w") as f:
+        json.dump(result, f)
+"""
+
+
+def _pod_records(out: str, prefix: str = "") -> list:
+    recs = []
+    for name in sorted(os.listdir(out)):
+        if name.startswith(prefix) and name.endswith(".json") and name != "result.json":
+            with open(os.path.join(out, name)) as f:
+                recs.append(json.load(f))
+    return recs
+
+
+def _pod_root(torch, phase: str, n_checkpoints: int, cfg):
+    """A temporary root for a pod phase, after this process frees its
+    cached card memory; fails when the disk cannot hold the checkpoints."""
+    import gc
+    import shutil
+    import tempfile
+
+    from maggy_tpu_torch.models import Decoder
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix=phase.replace(".", "_") + "_")
+    n_params = sum(p.numel() for p in Decoder(cfg, device="meta").parameters())
+    need = n_checkpoints * 12 * n_params
+    free = shutil.disk_usage(root).free
+    if free < need:
+        shutil.rmtree(root, ignore_errors=True)
+        raise SystemExit(f"{phase}: {free / 1e9:.1f} GB free under {root}, the phase needs {need / 1e9:.1f} GB")
+    os.makedirs(os.path.join(root, "out"))
+    return root, n_params
+
+
+def pod_reference_losses(torch, cfg, seq: int, steps: int) -> list:
+    """One process's losses for pod.elastic's steps (no mesh): what the ranks
+    of a process group are held to."""
+    import gc
+
+    from maggy_tpu_torch.models import Decoder
+    from maggy_tpu_torch.train import Trainer, adamw, synthetic_lm_batches
+
+    trainer = Trainer(Decoder(cfg, device="meta"), adamw(1e-4), device="cuda:0")
+    data = synthetic_lm_batches(cfg.vocab_size, B, seq, seed=0)
+    state = trainer.make_state(0, next(data))
+    losses = []
+    for _ in range(steps):
+        state, m = trainer.step(state, next(data))
+        losses.append(float(m["loss"]))
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase_pod_elastic(torch, card: str, model=("llama3_8b", dict(n_layers=POD_LAYERS)), device=None,
+                      seq: int = S) -> dict:
+    """pod.elastic: ``python -m maggy_tpu_torch.run --workers 2 --elastic 1``
+    over a script whose ``lagom(train_fn, DistributedConfig(sharding="dp"))``
+    trains the ``train`` widths at depth POD_LAYERS in both processes. One
+    card: ``data_plane="local"``, two replicas on ``cuda:0`` from one seed.
+    Two or more: ``--global-mesh``, ``data_plane="auto"``, dp=2 over NCCL,
+    rank r on card r. One checkpoint, rank 0's, which every rank of the
+    next generation restores. Rank 1 of generation 0 SIGKILLs itself after step
+    POD_KILL_AT; the launcher restarts the generation, which resumes from
+    the step-POD_SAVE_AT checkpoint. Returns the ranks' flash launches.
+    ``model`` (a DecoderConfig preset and its arguments) and
+    ``device="cpu"`` rehearse the phase on the CPU at a tiny size, where
+    every check but the launches, the devices and the budget can pass."""
+    import shutil
+
+    from maggy_tpu_torch.models import DecoderConfig
+
+    cfg = getattr(DecoderConfig, model[0])(**model[1])
+    global_mesh = torch.cuda.device_count() >= 2
+    reference = pod_reference_losses(torch, cfg, seq, POD_STEPS) if global_mesh else None
+    root, n_params = _pod_root(torch, "pod.elastic", 1, cfg)
+    out = os.path.join(root, "out")
+    hparams = dict(out=out, ckpt=os.path.join(root, "ckpt"), seq=seq, steps=POD_STEPS, save_at=POD_SAVE_AT,
+                   kill_at=POD_KILL_AT)
+    script = os.path.join(root, "pod_elastic_script.py")
+    with open(script, "w") as f:
+        f.write(POD_ELASTIC_SCRIPT.format(repo=REPO, global_mesh=global_mesh, preset=model[0], model_kw=model[1],
+                                          hparams=hparams, plane="auto" if global_mesh else "local", hb=LAGOM_HB,
+                                          timeout=POD_ELASTIC_BUDGET_S, out=out, device=device))
+    flags = ["--workers", "2", "--elastic", "1"] + (["--global-mesh"] if global_mesh else [])
+    t0, wall0 = time.perf_counter(), time.time()
+    try:
+        rc, stdout, stderr = run_launcher(flags, script, POD_ELASTIC_BUDGET_S + 60,
+                                          dict(MAGGY_TPU_LOG_ROOT=os.path.join(root, "logs")))
+        phase_s = time.perf_counter() - t0
+        recs = {(r["gen"], r["rank"]): r for r in _pod_records(out, "g")}
+        # when each process started and its lagom returned, from the launch
+        ends = {f"g{r['gen']}.r{r['rank']}": (r["t0"] - wall0, r["at"] - wall0)
+                for r in _pod_records(out, "lagom_returned")}
+        result = json.load(open(os.path.join(out, "result.json"))) if os.path.exists(os.path.join(out,
+                                                                                                  "result.json")) else {}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    per_step = flash_launches_per_step(POD_LAYERS)
+    g0 = [recs.get((0, r), {}) for r in (0, 1)]
+    g1 = [recs.get((1, r), {}) for r in (0, 1)]
+    kill = str(POD_KILL_AT)
+
+    def launches_exact(rec):
+        return bool(rec.get("launches")) and all(
+            n == {k: (int(step) - rec["start"]) * v for k, v in per_step.items()}
+            for step, n in rec["launches"].items())
+
+    losses = [v for rec in g0 + g1 for v in rec.get("losses", {}).values()]
+    checks = {
+        "launcher_exit_0": rc == 0,
+        "generation_restarted": "restarting generation 0 -> 1" in stderr
+        and "restarting generation 1 -> 2" not in stderr,
+        "rank1_killed_after_step": "killed_at" in g0[1] and kill in g0[1].get("losses", {}),
+        "gen1_starts_at_checkpoint": all(rec.get("start") == POD_SAVE_AT for rec in g1),
+        "both_end_at_last_step": all(rec.get("end_step") == POD_STEPS for rec in g1)
+        and result.get("num_workers") == 2 and result.get("end_step") == POD_STEPS,
+        "recomputed_step_bit_equal": all(g1[r].get("losses", {}).get(kill) == g0[r]["losses"][kill]
+                                         for r in (0, 1) if kill in g0[r].get("losses", {}))
+        and kill in g0[1].get("losses", {}),
+        "losses_finite": bool(losses) and all(math.isfinite(v) for v in losses),
+        "launches": all(launches_exact(rec) for rec in g0 + g1),
+        "devices": [rec.get("device") for rec in g1] == (["cuda:0", "cuda:1"] if global_mesh else ["cuda:0"] * 2),
+        "within_budget": phase_s <= POD_ELASTIC_BUDGET_S,
+    }
+    if global_mesh:
+        loss_rel = max((_rel(rec["losses"][str(i + 1)], reference[i]) for rec in g1
+                        for i in range(POD_SAVE_AT, POD_STEPS)), default=float("inf"))
+        checks["held_to_one_process"] = loss_rel <= TOL_MESH_LOSS_REL
+    else:
+        loss_rel = None
+        # one seed, one card: the two replicas' trajectories are the same
+        checks["replicas_equal"] = g1[0].get("losses") == g1[1].get("losses") and bool(g1[0].get("losses"))
+    ok = all(checks.values())
+    restart_s = (min(rec.get("first_step_at", float("inf")) for rec in g1) - g0[1]["killed_at"]
+                 if "killed_at" in g0[1] else None)
+    emit(
+        "pod.elastic", ok=ok, checks=checks, global_mesh=global_mesh, n_params=n_params, steps=POD_STEPS,
+        start_to_first_step_s={f"g{g}.r{r}": recs.get((g, r), {}).get("first_step_s") for g in (0, 1) for r in (0, 1)},
+        save_s=[rec.get("save_s") for rec in g0], restore_s=[rec.get("restore_s") for rec in g1],
+        timeline={f"g{g}.r{r}": recs.get((g, r), {}).get("timeline") for g in (0, 1) for r in (0, 1)},
+        started_and_returned_s=ends, launcher_log=[line for line in stderr.splitlines() if "maggy_tpu_torch.run]" in line],
+        restart_s=restart_s, peak_gib=[rec.get("peak_gib") for rec in g1],
+        losses={f"g{g}.r{r}": recs.get((g, r), {}).get("losses") for g in (0, 1) for r in (0, 1)},
+        reference=reference, loss_rel=loss_rel, tol_loss_rel=TOL_MESH_LOSS_REL if global_mesh else 0.0,
+        launches_per_step=per_step, phase_s=phase_s, budget_s=POD_ELASTIC_BUDGET_S, card=card,
+    )
+    if not ok:
+        print(stderr[-6000:], file=sys.stderr, flush=True)
+        raise SystemExit(f"pod.elastic failed: {[k for k, v in checks.items() if not v]}")
+    total = {k: 0 for k in per_step}
+    for rec in g0 + g1:
+        last = rec["launches"][max(rec["launches"], key=int)]
+        for k in total:
+            total[k] += last[k]
+    return total
+
+
+def phase_pod_hpo(torch, card: str, model=("llama3_8b", dict(n_layers=POD_LAYERS)), device=None,
+                  seq: int = S) -> dict:
+    """pod.hpo: ``python -m maggy_tpu_torch.run --workers 2 --respawn 1``
+    over a script whose ``lagom(train_fn, HyperparameterOptConfig(
+    num_trials=POD_HPO_TRIALS))`` runs one local trial executor on
+    ``cuda:0`` in the driver's process; the worker process leases
+    ``cuda:0`` through ``MAGGY_TPU_WORKER_DEVICES=0``. The worker SIGKILLs
+    itself inside its first trial; the launcher respawns it, the driver
+    requeues the lost trial, and every trial finishes once. Returns the
+    trials' flash launches. ``model`` and ``device`` as in
+    :func:`phase_pod_elastic`."""
+    import shutil
+
+    from maggy_tpu_torch.models import DecoderConfig
+
+    cfg = getattr(DecoderConfig, model[0])(**model[1])
+    root, n_params = _pod_root(torch, "pod.hpo", 0, cfg)
+    out = os.path.join(root, "out")
+    script = os.path.join(root, "pod_hpo_script.py")
+    with open(script, "w") as f:
+        f.write(POD_HPO_SCRIPT.format(repo=REPO, trials=POD_HPO_TRIALS, hb=LAGOM_HB, timeout=POD_HPO_BUDGET_S,
+                                      hparams=dict(out=out, seq=seq, model=model), out=out, device=device))
+    t0 = time.perf_counter()
+    try:
+        rc, stdout, stderr = run_launcher(["--workers", "2", "--respawn", "1"], script, POD_HPO_BUDGET_S + 60,
+                                          dict(MAGGY_TPU_LOG_ROOT=os.path.join(root, "logs"),
+                                               MAGGY_TPU_WORKER_DEVICES="0"))
+        phase_s = time.perf_counter() - t0
+        started, killed, done = (_pod_records(out, p + ".") for p in ("start", "killed", "done"))
+        result = json.load(open(os.path.join(out, "result.json"))) if os.path.exists(os.path.join(out,
+                                                                                                  "result.json")) else {}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    per_step = flash_launches_per_step(POD_LAYERS)
+    finished = [rec["trial"] for rec in done]
+    lost = killed[0]["trial"] if len(killed) == 1 else None
+    losses = [v for rec in done for v in rec["losses"]]
+    checks = {
+        "launcher_exit_0": rc == 0,
+        "worker_respawned": "respawning into the live experiment" in stderr,
+        "one_worker_killed": len(killed) == 1 and killed[0]["role"] == "worker",
+        "every_trial_finished": result.get("num_trials") == POD_HPO_TRIALS and not result.get("errors")
+        and len(set(finished)) == POD_HPO_TRIALS,
+        "no_trial_finished_twice": len(finished) == len(set(finished)),
+        "lost_trial_requeued": lost in finished
+        and all(rec["pid"] != killed[0]["pid"] for rec in done if rec["trial"] == lost),
+        "both_processes_served": {rec["role"] for rec in done} == {"driver", "worker"},
+        "losses_finite": bool(losses) and all(math.isfinite(v) for v in losses),
+        "launches": bool(done) and all(rec["launches"] == {k: POD_HPO_STEPS * v for k, v in per_step.items()}
+                                       for rec in done),
+        "leases": all(rec["device"] == "cuda:0" for rec in started),
+        "within_budget": phase_s <= POD_HPO_BUDGET_S,
+    }
+    ok = all(checks.values())
+    emit(
+        "pod.hpo", ok=ok, checks=checks, n_params=n_params, trials=POD_HPO_TRIALS, steps=POD_HPO_STEPS,
+        # the first step of a trial carries its warm-up (allocator, cuBLAS)
+        trial_step_ms={f"{rec['trial']}.{rec['role']}": dict(mean=statistics.mean(rec["step_ms"]), steps=rec["step_ms"])
+                       for rec in done},
+        trial_peak_gib={f"{rec['trial']}.{rec['role']}": rec["peak_gib"] for rec in done},
+        lost_trial=lost, started=[(rec["trial"], rec["role"]) for rec in started],
+        study_s=phase_s, phase_s=phase_s, budget_s=POD_HPO_BUDGET_S, card=card,
+    )
+    if not ok:
+        print(stderr[-6000:], file=sys.stderr, flush=True)
+        raise SystemExit(f"pod.hpo failed: {[k for k, v in checks.items() if not v]}")
+    total = {k: 0 for k in per_step}
+    for rec in done + killed:
+        for k in total:
+            total[k] += rec.get("launches", {}).get(k, 0)
+    return total
+
+
 def _category(name: str) -> str:
     low = name.lower()
     # the three attention kernels, whether a flash or a ring wrapper launched them
@@ -3839,10 +4317,16 @@ def main(argv=None) -> int:
     # pipeline stages: the single-stage 1F1B path held to `train`, then the
     # stages across cards held to the single rank
     pipe_launches = phase_dist_pipe(torch, cfg, S, TRAIN_STEPS, card, train_ref, single, train_step_ms)
+    # pod mode: the same script in two processes under the launcher, a
+    # distributed run restarted after a lost rank, then an HPO study whose
+    # worker process is killed and respawned
+    pod_launches = phase_pod_elastic(torch, card)
+    hpo_launches = phase_pod_hpo(torch, card)
     # the rest of the Trainer: checkpoints, the preemption save and resume
     # from sharded data, then the remat policies; their flash launches join
     # the `train` phase's in the kernels line
     for more in (ablation_launches, single["launches"], mesh_launches, seq_launches, zero_launches, pipe_launches,
+                 pod_launches, hpo_launches,
                  phase_train_resume(torch, cfg, S, card, train_peak, train_step_ms),
                  phase_train_remat(torch, cfg, S, card)):
         for name, n in more.items():

@@ -31,4 +31,6 @@ def __getattr__(name):
         return importlib.import_module("maggy_tpu_torch.experiment")
     if name == "AblationStudy":
         return importlib.import_module("maggy_tpu_torch.ablation").AblationStudy
+    if name == "initialize_data_plane":
+        return importlib.import_module("maggy_tpu_torch.core.pod").initialize_data_plane
     raise AttributeError(f"module 'maggy_tpu_torch' has no attribute {name!r}")

@@ -8,9 +8,11 @@ that layout (``device="cpu"``: gloo ranks on the CPU). ``zero_lvl`` maps
 onto the layouts as in JAX: 0 → dp, 2 or 3 → fsdp, 1 → dp with
 ``zero_stage=1`` (ZeRO-1 over ``data``); ``zero_stage`` and ``bucket_mb``
 are stamped onto the resolved spec, whose trainer they configure
-(:meth:`~maggy_tpu_torch.train.TrainContext.trainer`). The pod, elastic,
-restart and evaluator options and ``data_plane="local"`` and
-``min_slices > 1`` raise, naming ROADMAP queue 1 item 7f.
+(:meth:`~maggy_tpu_torch.train.TrainContext.trainer`). Pod mode
+(``driver_addr``), ``data_plane="local"``, the evaluator and
+``max_restarts`` take the JAX config's meanings; elastic membership
+(``elastic``, ``num_slices``, ``min_slices > 1``) raises, naming ROADMAP
+queue 1 item 7f2.
 """
 
 from __future__ import annotations
@@ -68,11 +70,33 @@ class DistributedConfig(LagomConfig):
         :param sharding: a ShardingSpec or a preset ("dp", "fsdp", "tp",
             "2d", ...), resolved against the number of ranks.
         :param num_executors: ranks, one process per card (default: every
-            visible card; 1 with ``device="cpu"``).
+            visible card; 1 with ``device="cpu"``). Env override:
+            ``MAGGY_TPU_NUM_EXECUTORS`` (the launcher exports it).
+        :param driver_addr: pod mode: every process runs the same script;
+            the others connect to the driver here ("host:port"; env
+            override ``MAGGY_TPU_DRIVER``, the secret rides
+            ``MAGGY_TPU_SECRET``). The driver runs partition 0 in its own
+            process, which is that rank.
+        :param data_plane: "auto", one process group over every rank
+            (formed by the driver's spawned ranks, or in pod mode by
+            :func:`~maggy_tpu_torch.core.pod.initialize_data_plane` before
+            ``lagom``); "local", each rank its own one-rank group
+            (independent replicas).
         :param worker_timeout: seconds a rank may run before the driver
-            kills it and fails the run.
+            kills it and fails the run; in pod mode, how long a registered
+            worker may stay silent.
         :param coordinator_port: the rendezvous port (``MASTER_PORT``);
-            default a free port.
+            default a free port. Env override:
+            ``MAGGY_TPU_COORDINATOR_PORT``.
+        :param evaluator: the last partition evaluates, outside the
+            training group (``ctx.role == "evaluator"``; its outputs land
+            under ``result["evaluator"]``); needs ``num_executors >= 2``
+            and ``data_plane="local"``.
+        :param max_restarts: restarts of a rank lost to a TRANSIENT death
+            (never a train_fn exception); the relaunched train_fn resumes
+            from its latest checkpoint. Under ``data_plane="auto"`` with
+            more than one rank every rank is relaunched together, for one
+            slot. Env override: ``MAGGY_TPU_MAX_RESTARTS``.
         :param device: None for CUDA cards (``lagom`` raises without CUDA),
             ``"cpu"`` for gloo ranks on the CPU.
         """
@@ -103,38 +127,37 @@ class DistributedConfig(LagomConfig):
         self.num_executors = num_executors
         self.seed = int(seed)
         self.log_dir = log_dir
-        if driver_addr is not None:
-            _refuse("pod mode (driver_addr)", "7f")
         self.driver_addr = driver_addr
         if data_plane not in ("auto", "local"):
             raise ValueError("data_plane must be 'auto' or 'local'")
-        if data_plane == "local":
-            _refuse("host-local meshes of independent replicas (data_plane='local')", "7f")
-        self.data_plane = "auto"
+        self.data_plane = data_plane
         self.worker_timeout = float(worker_timeout)
         if coordinator_port is None and os.environ.get("MAGGY_TPU_COORDINATOR_PORT"):
             coordinator_port = int(os.environ["MAGGY_TPU_COORDINATOR_PORT"])
         self.coordinator_port = coordinator_port
-        if evaluator:
-            _refuse("the evaluator worker (evaluator=True)", "7f")
-        self.evaluator = False
+        self.evaluator = bool(evaluator)
         if max_restarts == 0 and os.environ.get("MAGGY_TPU_MAX_RESTARTS"):
             max_restarts = int(os.environ["MAGGY_TPU_MAX_RESTARTS"])
         if max_restarts < 0:
             raise ValueError("max_restarts must be >= 0")
-        if max_restarts > 0:
-            _refuse(f"elastic restarts (max_restarts={max_restarts})", "7f")
-        self.max_restarts = 0
-        if elastic:
-            _refuse("elastic membership (elastic=True)", "7f")
-        self.elastic = False
+        self.max_restarts = int(max_restarts)
         if min_slices < 1:
             raise ValueError("min_slices must be >= 1")
+        if num_slices is not None and num_slices < 1:
+            raise ValueError("num_slices must be >= 1")
+        if self.evaluator and elastic:
+            raise ValueError(
+                "elastic=True does not compose with evaluator=True: the "
+                "evaluator partition sits outside the training membership"
+            )
+        if elastic:
+            _refuse("elastic membership (elastic=True)", "7f2")
+        self.elastic = False
         if min_slices > 1:
-            _refuse(f"elastic shrinking of the mesh (min_slices={min_slices})", "7f")
+            _refuse(f"elastic shrinking of the mesh (min_slices={min_slices})", "7f2")
         self.min_slices = 1
         if num_slices is not None:
-            _refuse(f"a multi-slice mesh (num_slices={num_slices})", "7f")
+            _refuse(f"a multi-slice mesh (num_slices={num_slices})", "7f2")
         self.num_slices = None
         self.device = device
 

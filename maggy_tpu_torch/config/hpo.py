@@ -77,11 +77,13 @@ class HyperparameterOptConfig(LagomConfig):
             threads (a mesh inside a trial's lease is ROADMAP queue 1 item
             7h; ``lagom(train_fn, DistributedConfig(...))`` runs a mesh).
         :param driver_addr: pod mode, where remote trial workers connect
-            (reference: Spark's cross-host executors, spark_driver.py:136-145).
-            Not ported: setting it, or the MAGGY_TPU_DRIVER env var, raises
-            ``NotImplementedError`` (ROADMAP queue 1 item 7f).
-        :param worker_timeout: pod mode's liveness limit; kept so configs
-            carry over, unused until pod mode is ported.
+            (reference: Spark's cross-host executors, spark_driver.py:136-145;
+            env override ``MAGGY_TPU_DRIVER``): the driver runs one local
+            trial executor and every process started with
+            ``MAGGY_TPU_ROLE=worker`` adds one
+            (``python -m maggy_tpu_torch.run --workers N``).
+        :param worker_timeout: pod mode: seconds a registered worker may
+            stay silent before its trial is freed and requeued.
         :param trial_retries: how many times a trial lost to a TRANSIENT
             failure (worker death / RPC loss) is requeued before it is marked
             ERROR for good. Deterministic failures — an exception raised by

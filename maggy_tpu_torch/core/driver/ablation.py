@@ -117,9 +117,8 @@ class AblationDriver(HyperparameterOptDriver):
 def make_ablation_resolver(study):
     """Trial-params -> train_fn-kwargs resolver for ablation trials. Module
     level so pod trial workers — which hold the same AblationConfig the
-    driver does — can rebuild it host-side (the JAX package's core/pod.py
-    run_trial_worker; pod mode is ROADMAP queue 1 item 7f here). It runs on
-    the trial's executor thread with the lease's card current."""
+    driver does — can rebuild it host-side (core/pod.py run_trial_worker).
+    It runs on the trial's executor thread with the lease's card current."""
     dataset_generator = study.dataset_generator or default_dataset_generator
 
     def resolve(params, available):

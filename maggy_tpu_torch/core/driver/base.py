@@ -8,8 +8,9 @@ launch executors → await completion → final callback → stop.
 
 Execution substrate: instead of Spark's ``foreachPartition`` long-running tasks
 (spark_driver.py:136-145), executors are local worker threads, each leasing a
-disjoint group of CUDA cards (trial ↔ card placement). Pod mode, where remote
-hosts join over the same RPC protocol, is not ported (ROADMAP queue 1 item 7f).
+disjoint group of CUDA cards (trial ↔ card placement). In pod mode
+(:mod:`maggy_tpu_torch.core.pod`) the driver hosts partition 0 and the other
+processes or hosts join over the same RPC protocol.
 """
 
 from __future__ import annotations
@@ -61,12 +62,6 @@ def device_groups(devices_per_trial: int = 1, device=None) -> List[List[torch.de
     if n < k:
         raise ValueError(f"devices_per_trial={k} but only {n} CUDA card(s) are visible")
     return [[torch.device("cuda", g * k + i) for i in range(k)] for g in range(n // k)]
-
-
-def driver_address(config) -> Optional[str]:
-    """Pod-mode detection, copied from :func:`maggy_tpu.core.pod.driver_address`
-    (the rest of ``core/pod.py`` is ROADMAP queue 1 item 7f)."""
-    return os.environ.get("MAGGY_TPU_DRIVER") or getattr(config, "driver_addr", None)
 
 
 class Driver(ABC):
@@ -197,8 +192,8 @@ class Driver(ABC):
         self.server.register_callback(
             "STATUS", lambda m: {"type": "STATUS", **self._status()}
         )
-        # a launcher (python -m maggy_tpu.run in the JAX package) pre-assigns the port so workers
-        # can be started with MAGGY_TPU_DRIVER before the driver is up
+        # a launcher (python -m maggy_tpu_torch.run) pre-assigns the port so
+        # workers can be started with MAGGY_TPU_DRIVER before the driver is up
         self.server.start(port=int(os.environ.get("MAGGY_TPU_BIND_PORT", "0")))
         self._advertise()
         self._digestion_thread = threading.Thread(
@@ -208,9 +203,17 @@ class Driver(ABC):
 
     def _advertise(self) -> None:
         """Write the driver-registry record (reference drivers register with
-        Hopsworks REST, hopsworks.py:136-190): loopback with scope="local",
-        which monitor auto-attach uses."""
+        Hopsworks REST, hopsworks.py:136-190). Pod drivers advertise their
+        reachable host name with scope="pod" for worker bootstrap; every
+        other driver advertises loopback with scope="local", which worker
+        discovery ignores and monitor auto-attach uses."""
         self._registered_driver = False
+        if getattr(self, "pod_mode", False):
+            import socket as socket_mod
+
+            host, scope = socket_mod.gethostname(), "pod"
+        else:
+            host, scope = "127.0.0.1", "local"
         # The registry record lives in the experiment root, so anyone who can
         # read that storage can join the control plane with the embedded
         # secret. On shared storage set MAGGY_TPU_REGISTRY_NO_SECRET=1 to
@@ -218,19 +221,21 @@ class Driver(ABC):
         omit_secret = os.environ.get("MAGGY_TPU_REGISTRY_NO_SECRET", "") not in ("", "0")
         try:
             self.env.register_driver(
-                self.app_id, self.run_id, "127.0.0.1", self.server.port,
-                secret=None if omit_secret else self.server.secret, scope="local",
+                self.app_id, self.run_id, host, self.server.port,
+                secret=None if omit_secret else self.server.secret, scope=scope,
             )
             self._registered_driver = True
         except OSError as e:  # the record is best-effort
+            # pod workers relying on discovery would otherwise time out much
+            # later blaming a stale record — name the real failure now
             self.log(
                 f"WARNING: could not write driver registry record "
                 f"{self.env.driver_registry_path(self.app_id)}: {e}"
+                + ("; workers must use MAGGY_TPU_DRIVER/MAGGY_TPU_SECRET" if scope == "pod" else "")
             )
 
     def _local_partitions(self) -> List[int]:
-        """Partitions this process hosts (every one: pod mode, where remote
-        hosts take some, is ROADMAP queue 1 item 7f)."""
+        """Partitions this process hosts; pod-mode drivers narrow this."""
         return list(range(self.num_executors))
 
     def _launch_executors(self, train_fn: Callable) -> None:

@@ -1,5 +1,5 @@
 """Hyperparameter-optimization driver — the HPO orchestrator; the port's copy
-of :mod:`maggy_tpu.core.driver.hpo` without pod mode (ROADMAP queue 1 item 7f).
+of :mod:`maggy_tpu.core.driver.hpo`.
 
 Capability parity with the reference ``HyperparameterOptDriver``
 (core/experiment_driver/optimization_driver.py:40-692): optimizer/early-stop
@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, List
 from maggy_tpu_torch import constants, util
 from maggy_tpu_torch.config.base import BaseConfig
 from maggy_tpu_torch.core import rpc
-from maggy_tpu_torch.core.driver.base import Driver, device_groups, driver_address
+from maggy_tpu_torch.core.driver.base import Driver, device_groups
 from maggy_tpu_torch.core.executors.trial import trial_executor_fn
 from maggy_tpu_torch.optimizer import IDLE, get_earlystop, get_optimizer
 from maggy_tpu_torch.optimizer.gridsearch import GridSearch
@@ -98,17 +98,22 @@ class HyperparameterOptDriver(Driver):
         self._retry_queue: List[tuple] = []  # (ready_ts, Trial), unordered
         self._stashed_suggestion = None  # probe result awaiting a worker
 
-        # pod mode (remote hosts running the same script add trial capacity,
-        # the reference's Spark executors, spark_driver.py:136-145) is not
-        # ported
-        if driver_address(config):
-            raise NotImplementedError(
-                "pod mode (driver_addr / MAGGY_TPU_DRIVER) is ROADMAP queue 1 item 7f "
-                "(pod mode and elasticity), not ported yet"
-            )
+        # pod mode (reference parity: Spark runs trial executors on cluster
+        # hosts, spark_driver.py:136-145): remote processes running the same
+        # script with MAGGY_TPU_ROLE=worker connect as trial executors; the
+        # driver hosts partition 0 itself. Capacity is elastic — a silent
+        # worker's trial is freed after worker_timeout and the experiment
+        # continues on the remaining workers; a respawned worker re-registers
+        # (new attempt nonce) and serves again.
+        from maggy_tpu_torch.core.pod import driver_address
 
+        self.pod_mode = bool(driver_address(config))
+        self._last_seen: Dict[int, float] = {}
+        self._gstop_sent: set = set()  # pids whose GET saw the experiment end
+
+        default_cap = 1 if self.pod_mode else len(groups)
         self.num_executors = max(
-            1, min(config.num_executors or len(groups), self.num_trials)
+            1, min(config.num_executors or default_cap, self.num_trials)
         )
 
     def _exp_startup_callback(self) -> None:
@@ -153,8 +158,8 @@ class HyperparameterOptDriver(Driver):
     # ------------------------------------------------------------------ server
 
     def _make_server(self) -> rpc.Server:
-        # a launcher may distribute one secret via env; otherwise the Server
-        # mints a fresh one
+        # pod launchers distribute one secret to every process via env; local
+        # runs mint a fresh one (Server does)
         return rpc.Server(
             self.num_executors, secret=os.environ.get("MAGGY_TPU_SECRET") or None
         )
@@ -167,10 +172,22 @@ class HyperparameterOptDriver(Driver):
         s.register_callback("METRIC", self._metric_callback)
         s.register_callback("FINAL", self._final_callback)
         s.register_callback("LOG", self._log_callback)
+        # pod trial workers bootstrap their app/run ids from the driver
+        # (core/pod.py run_trial_worker), the exchange the distributed
+        # driver serves
+        s.register_callback(
+            "EXEC_CONFIG",
+            lambda m: {"type": "EXEC_CONFIG", "app_id": self.app_id, "run_id": self.run_id},
+        )
+
+    def _touch(self, msg) -> None:
+        # GIL-atomic dict store; read by the digestion thread's liveness sweep
+        self._last_seen[msg["partition_id"]] = time.time()
 
     # --- event-loop handlers: fast, lock briefly, enqueue heavy work ----------
 
     def _reg_callback(self, msg) -> Dict[str, Any]:
+        self._touch(msg)
         reregistered = self.server.reservations.register(
             msg["partition_id"], msg.get("meta", {})
         )
@@ -179,6 +196,7 @@ class HyperparameterOptDriver(Driver):
 
     def _get_callback(self, msg) -> Dict[str, Any]:
         pid = msg["partition_id"]
+        self._touch(msg)
         assignment = self.server.reservations.get_assignment(pid)
         if assignment is not None:
             with self.lock:
@@ -186,10 +204,12 @@ class HyperparameterOptDriver(Driver):
             if trial is not None:
                 return {"type": "TRIAL", "trial_id": trial.trial_id, "params": trial.params}
         if self.experiment_done.is_set() or self.abort.is_set():
+            self._gstop_sent.add(pid)
             return {"type": "GSTOP"}
         return {"type": "IDLE"}
 
     def _metric_callback(self, msg) -> Dict[str, Any]:
+        self._touch(msg)
         self.note_worker_telemetry(msg)
         self.server.enqueue(msg)
         if self.abort.is_set():
@@ -209,6 +229,7 @@ class HyperparameterOptDriver(Driver):
         # next GET must never see its finished trial still assigned, or it
         # would run it twice (reference clears in the socket thread too,
         # rpc.py:463-471)
+        self._touch(msg)
         self.server.reservations.assign_trial(msg["partition_id"], None)
         self.server.enqueue(msg)
         return {"type": "OK"}
@@ -253,8 +274,10 @@ class HyperparameterOptDriver(Driver):
         self.log(f"Executor {pid} died ({msg['error']}); recovering")
         self._lose_assignment(pid, f"executor {pid} died: {msg['error']}")
         self._maybe_idle.discard(pid)
-        # respawn the lost capacity — unless the slot is quarantined, in
-        # which case it stays down for the cooldown
+        self._last_seen.pop(pid, None)
+        # respawn lost LOCAL capacity (remote pod workers come back through
+        # their own supervisor, `maggy_tpu_torch.run --respawn`) — unless the
+        # slot is quarantined, in which case it stays down for the cooldown
         if pid in getattr(self, "_local_pids", ()) and not self.quarantine.is_quarantined(pid):
             self._respawn_executor(pid)
         self._maybe_finish()
@@ -348,14 +371,41 @@ class HyperparameterOptDriver(Driver):
                 trial.set_early_stop()
                 self.log(f"Early stopping trial {tid}")
 
+    def _liveness_sweep(self) -> None:
+        """Pod mode: a registered worker silent past worker_timeout is
+        presumed dead — free its trial so the budget completes on the
+        remaining capacity (the reference gets this from Spark re-running the
+        executor task, spark_driver.py:136-145; nothing here aborts, so a
+        respawned worker — ``maggy_tpu_torch.run --respawn`` — re-registers
+        and serves again)."""
+        timeout = getattr(self.config, "worker_timeout", 600.0)
+        now = time.time()
+        for pid, ts in list(self._last_seen.items()):
+            if now - ts <= timeout:
+                continue
+            # drop so the sweep fires once per death; a re-REG re-adds it
+            self._last_seen.pop(pid, None)
+            self._maybe_idle.discard(pid)
+            self.log(
+                f"Executor {pid} silent for {now - ts:.0f}s (> worker_timeout "
+                f"{timeout:.0f}s); freeing its trial and continuing on the "
+                "remaining workers"
+            )
+            self._lose_assignment(pid, f"executor {pid} presumed dead")
+        # a dead worker must never strand completion — even before budget
+        # exhaustion (_maybe_finish probes the controller directly instead of
+        # waiting for a worker GET that may never come)
+        self._maybe_finish()
+
     def _digest_final(self, msg) -> None:
         pid = msg["partition_id"]
         trial_id = msg["trial_id"]
         with self.lock:
             trial = self.trial_store.pop(trial_id, None)
         if trial is None:
-            # duplicate FINAL: the worker is healthy and unassigned —
-            # reschedule it, or it idles forever
+            # duplicate FINAL, or a live worker the liveness sweep falsely
+            # presumed dead (its trial was already freed): the worker is
+            # healthy and unassigned — reschedule it, or it idles forever
             self._try_assign(pid)
             return
         if msg.get("error"):
@@ -393,6 +443,8 @@ class HyperparameterOptDriver(Driver):
         # up requeued trials whose backoff has elapsed
         for pid in list(self._maybe_idle):
             self._try_assign(pid)
+        if self.pod_mode:
+            self._liveness_sweep()
         self._maybe_finish()
 
     def _try_assign(self, pid: int) -> None:
@@ -623,7 +675,57 @@ class HyperparameterOptDriver(Driver):
             quarantined = self.quarantine.snapshot()
             if quarantined:
                 base.update(quarantined=quarantined)
+            if self.pod_mode:
+                # dict() snapshot: the digestion thread's liveness sweep pops
+                # entries concurrently with this event-loop-thread iteration
+                base.update(
+                    last_seen={
+                        str(pid): round(time.time() - ts, 1)
+                        for pid, ts in dict(self._last_seen).items()
+                    }
+                )
         return base
+
+    def _await_completion(self) -> None:
+        super()._await_completion()
+        if not self.pod_mode or self.abort.is_set():
+            return
+        # linger until every LIVE remote worker's next GET has seen GSTOP —
+        # tearing the server down the instant the local executor returns
+        # turns a cleanly finished study into an RpcError for any worker
+        # sleeping between GETs (it would then exit nonzero and burn a
+        # --respawn slot on a doomed replacement). Dead workers are excluded
+        # by heartbeat freshness; the wait is bounded regardless.
+        fresh = max(2.0, 4 * getattr(self.config, "hb_interval", 1.0))
+        deadline = time.time() + 10.0
+        while time.time() < deadline:
+            now = time.time()
+            waiting = [
+                pid
+                for pid, ts in dict(self._last_seen).items()
+                if now - ts < fresh and pid not in self._gstop_sent
+            ]
+            if not waiting:
+                return
+            time.sleep(0.05)
+
+    def _local_partitions(self) -> List[int]:
+        if not self.pod_mode:
+            return super()._local_partitions()
+        import socket as socket_mod
+
+        self.log(
+            f"Pod mode: HPO driver at {socket_mod.gethostname()}:"
+            f"{self.server.port} (secret via MAGGY_TPU_SECRET), running local "
+            f"trial executor 0; remote workers add capacity as they register"
+        )
+        return [0]
+
+    def _device_groups(self) -> List[list]:
+        groups = super()._device_groups()
+        # pod mode: the local executor takes this host's first lease; remote
+        # workers lease their own hosts' cards themselves
+        return groups[:1] if self.pod_mode else groups
 
     # ------------------------------------------------------------------ executor
 

@@ -17,7 +17,10 @@ current before its first trial, and again before an experiment kind's
 ``resolve`` hook builds the trial's model: a train_fn that builds
 ``Trainer(..., device="cuda")`` then lands on its own card. The hook and the
 kwarg injection run inside the trial's error handling, so a variant that
-cannot be built is that trial's error, not a dead worker.
+cannot be built is that trial's error, not a dead worker. A pod trial
+worker's lease may be a zero-argument callable
+(:func:`maggy_tpu_torch.core.pod._worker_devices`), resolved after the
+worker has registered: registration never touches a card.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import inspect
 import os
 import socket as socket_mod
 import traceback
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -50,10 +53,10 @@ def trial_executor_fn(
     partition_id: int,
     server_addr,
     secret: str,
-    devices: Optional[List[torch.device]] = None,
+    devices: Union[None, List[torch.device], Callable[[], List[torch.device]]] = None,
     resolve: Optional[Callable[[Dict[str, Any], Dict[str, Any]], Dict[str, Any]]] = None,
 ) -> Callable[[], None]:
-    lease = list(devices or [])
+    lease: List[torch.device] = [] if callable(devices) else list(devices or [])
     # one lease-wide TrainContext shared by every trial this worker runs,
     # built only if a train_fn asks for it
     _ctx_cache: Dict[str, Any] = {}
@@ -84,7 +87,7 @@ def trial_executor_fn(
     def _executor() -> None:
         from maggy_tpu_torch import telemetry
 
-        _make_current()
+        _make_current()  # a callable lease is still empty here
         env = EnvSing.get_instance()
         exp_dir = env.experiment_dir(app_id, run_id)
         log_file = os.path.join(exp_dir, f"executor_{partition_id}.log")
@@ -102,10 +105,17 @@ def trial_executor_fn(
             client.register(
                 meta={
                     "host": socket_mod.gethostname(),
-                    "devices": [str(d) for d in lease],
+                    "devices": (
+                        [f"lease:{os.environ.get('MAGGY_TPU_WORKER_DEVICES', '?')}"]
+                        if callable(devices)
+                        else [str(d) for d in lease]
+                    ),
                 }
             )
             client.start_heartbeat(reporter)
+            if callable(devices):
+                lease[:] = devices()
+                _make_current()
             while True:
                 reply = client.get_suggestion()
                 if reply["type"] == "GSTOP":

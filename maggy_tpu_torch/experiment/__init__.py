@@ -6,8 +6,10 @@ experiment_python.py:48-197): a single-experiment-at-a-time guard, app/run-id
 bookkeeping, and driver selection by singledispatch on the config type. Trials
 run in local executor threads, each on its lease of CUDA cards (or the CPU
 with ``device="cpu"``). Single runs, HPO, ablation and distributed training
-(one spawned process per card, each an NCCL rank on a mesh) are ported;
-pod workers (ROADMAP queue 1 item 7f) raise.
+(one spawned process per card, each an NCCL rank on a mesh) are ported, and
+so is pod mode (:mod:`maggy_tpu_torch.core.pod`): every process runs the
+same script, process 0 drives and the others join it as ranks or trial
+workers.
 
 "Lagom" (Swedish): not too little, not too much — the reference's name for
 running experiments with just the right amount of resources.
@@ -61,7 +63,9 @@ def lagom(train_fn: Callable, config: LagomConfig) -> Any:
             )
         _running = True
     try:
-        _maybe_run_as_pod_worker(train_fn, config)
+        worker_result = _maybe_run_as_pod_worker(train_fn, config)
+        if worker_result is not None:
+            return worker_result
         import os
 
         global _env_run_id_used
@@ -136,18 +140,27 @@ def _(config: DistributedConfig, app_id: str, run_id: int):
     return DistributedTrainingDriver(config, app_id, run_id)
 
 
-def _maybe_run_as_pod_worker(train_fn: Callable, config) -> None:
-    """Pod mode: a process told to be a worker (``MAGGY_TPU_ROLE=worker``,
-    ``MAGGY_TPU_DRIVER`` or ``config.driver_addr``) would join a remote
-    driver (the JAX package's core/pod.py). Not ported: it raises."""
+def _maybe_run_as_pod_worker(train_fn: Callable, config) -> Optional[Any]:
+    """Pod mode: the processes other than the driver's run a worker against
+    it instead of a driver of their own (core/pod.py). DistributedConfig
+    workers are ranks of the training run; HPO/ablation workers run a
+    remote TRIAL executor loop — the reference's Spark-executor trial
+    placement (spark_driver.py:136-145), elastic here: workers may join
+    late, die, and re-register (``maggy_tpu_torch.run --respawn``) without
+    aborting the study."""
     import os
 
-    if (
+    distributed = isinstance(config, DistributedConfig)
+    if not distributed and not (
         os.environ.get("MAGGY_TPU_ROLE") == "worker"
         or getattr(config, "driver_addr", None)
         or os.environ.get("MAGGY_TPU_DRIVER")
     ):
-        raise NotImplementedError(
-            "pod workers (MAGGY_TPU_ROLE / MAGGY_TPU_DRIVER / driver_addr) are "
-            "ROADMAP queue 1 item 7f (pod mode and elasticity), not ported yet"
-        )
+        return None
+    from maggy_tpu_torch.core import pod
+
+    role = pod.worker_role(config)
+    if role is None:
+        return None
+    run = pod.run_worker if distributed else pod.run_trial_worker
+    return run(train_fn, config, role.host, role.port, role.secret, via_registry=role.via_registry)

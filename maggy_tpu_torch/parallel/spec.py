@@ -25,7 +25,7 @@ AXIS_FSDP = "fsdp"
 AXIS_TENSOR = "tensor"
 AXIS_SEQ = "seq"
 AXIS_EXPERT = "expert"
-# outermost data axis of a multi-slice mesh (pod mode, ROADMAP item 7f)
+# outermost data axis of a multi-slice mesh (elastic membership, ROADMAP item 7f2)
 AXIS_SLICE = "slice"
 
 # the JAX package's mesh axes, in its layout-priority order (outer to inner)
@@ -136,8 +136,8 @@ class ShardingSpec:
 class SliceTopology:
     """A multi-slice layout: ``n_slices`` slices, each running
     ``slice_spec``, under an outer :data:`AXIS_SLICE` data axis. A value
-    class here: the sliced mesh it describes (pod mode, elastic reshape) is
-    ROADMAP queue 1 item 7f."""
+    class here: the sliced mesh it describes (the elastic reshape) is
+    ROADMAP queue 1 item 7f2."""
 
     n_slices: int = 1
     slice_spec: ShardingSpec = dataclasses.field(default_factory=ShardingSpec)

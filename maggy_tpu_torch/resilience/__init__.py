@@ -18,7 +18,7 @@ its own RPC drivers, so recovery is a runtime concern here instead:
   config/env seam, so recovery paths are testable on CPU without real
   preemptions.
 * :mod:`maggy_tpu_torch.resilience.membership` — epoch-numbered elastic
-  membership views, for the distributed driver (ROADMAP queue 1 item 7f).
+  membership views, for the distributed driver (ROADMAP queue 1 item 7f2).
 
 Consumers: ``core/driver/hpo.py`` (trial requeue + quarantine),
 ``train/trainer.py`` (``fit(resume="auto")`` + preemption save),

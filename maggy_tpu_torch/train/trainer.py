@@ -16,7 +16,7 @@ and splits each sequence over ``seq`` (ring attention,
 the Decoder in pipeline stages on the 1F1B schedule
 (:mod:`maggy_tpu_torch.parallel.pipeline`,
 :mod:`maggy_tpu_torch.train.pipeline_adapter`). Elastic membership (ROADMAP
-queue 1 item 7f) and the autopilot (item 9) belong to later slices of the
+queue 1 item 7f2) and the autopilot (item 9) belong to later slices of the
 port.
 
 Where the JAX step is a pure function returning a new state, ``step``
@@ -358,7 +358,7 @@ class Trainer:
     device: Any = None
     loss_fn: Callable = lm_loss_fn
     ring: Any = None
-    # elastic membership (a MembershipMonitor) is ROADMAP queue 1 item 7f
+    # elastic membership (a MembershipMonitor) is ROADMAP queue 1 item 7f2
     membership: Optional[Any] = None
     mesh: Any = None
     zero_stage: int = 0
@@ -370,7 +370,7 @@ class Trainer:
     def __post_init__(self):
         if self.membership is not None:
             raise NotImplementedError(
-                "elastic membership is not ported yet (ROADMAP queue 1 item 7f)"
+                "elastic membership is not ported yet (ROADMAP queue 1 item 7f2)"
             )
         if self.zero_stage not in (0, 1):
             raise ValueError(f"Trainer.zero_stage must be 0 or 1, got {self.zero_stage!r}")
@@ -1331,8 +1331,10 @@ class TrainContext:
     mesh: Any = None
     process_index: int = 0
     num_processes: int = 1
-    # "chief" (rank 0) or "worker"; the JAX package's "evaluator" role is
-    # ROADMAP queue 1 item 7f
+    # "chief" (rank 0) / "worker" / "evaluator" — the reference's TF role
+    # assignment (tf_dist_executor.py:138-144); an evaluator is outside the
+    # training group (its own one-rank group) and should evaluate
+    # checkpoints instead of training
     role: str = "worker"
 
     @classmethod
@@ -1365,10 +1367,6 @@ class TrainContext:
         if device is None and "LOCAL_RANK" in os.environ:  # else resolve_device takes the current card
             device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
         device = resolve_device(device)
-        if role not in ("chief", "worker"):
-            raise NotImplementedError(
-                f"the {role!r} role (the JAX package's evaluator) is ROADMAP queue 1 item 7f, not ported yet"
-            )
         common = dict(process_index=dist.get_rank(), num_processes=size, role=role)
         if device.type == "cuda":
             torch.cuda.set_device(device)

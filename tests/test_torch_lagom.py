@@ -349,10 +349,10 @@ def test_device_groups():
     "make, match",
     [
         # what of the distributed kind the port lacks (elastic membership,
-        # item 7f), refused by name
-        (lambda: DistributedConfig(device="cpu", elastic=True), "item 7f"),
-        (lambda: HyperparameterOptConfig(num_trials=1, optimizer="randomsearch", searchspace=_space(Searchspace),
-                                         device="cpu", driver_addr="localhost:1"), "item 7"),
+        # item 7f2), refused by name; pod mode itself is ported
+        # (tests/test_torch_pod*.py), but not a multi-slice pod mesh
+        (lambda: DistributedConfig(device="cpu", elastic=True), "item 7f2"),
+        (lambda: DistributedConfig(device="cpu", driver_addr="localhost:1", num_slices=2), "item 7f2"),
     ],
     ids=["distributed", "pod-driver-addr"],
 )
@@ -384,12 +384,16 @@ def test_ablation_config_dispatches_to_ablation_driver(port_env):
 
 
 @pytest.mark.parametrize("var, value, match", [
-    ("MAGGY_TPU_ROLE", "worker", "item 7"),
-    ("MAGGY_TPU_DRIVER", "localhost:1", "item 7"),
-])
+    ("MAGGY_TPU_ROLE", "worker", "no driver address"),
+    ("MAGGY_TPU_DRIVER", "localhost:1", "needs MAGGY_TPU_SECRET"),
+], ids=["MAGGY_TPU_ROLE-worker-item 7", "MAGGY_TPU_DRIVER-localhost:1-item 7"])
 def test_pod_workers_raise(port_env, monkeypatch, var, value, match):
+    """Pod workers are ported (tests/test_torch_pod*.py); a worker without
+    a driver address or a secret raises before it connects, as the JAX
+    package's does."""
+    monkeypatch.setenv("MAGGY_TPU_ROLE", "worker")
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(RuntimeError, match=match):
         _lagom(lambda hparams: 1.0, BaseConfig(device="cpu", hb_interval=HB))
 
 

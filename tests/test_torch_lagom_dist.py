@@ -289,7 +289,7 @@ def test_zero_options_run_through_lagom(port_env, kw, mode, zero):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(elastic=True), "7f"),
+    (dict(elastic=True), "7f2"),
 ], ids=["elastic"])
 def test_unported_options_raise_naming_their_items(port_env, kw, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\b"):

@@ -228,7 +228,17 @@ def _trainer_zero_stage_1():
     return (tr.zero_stage, mode), (1, ("off", (), 1))
 
 
-# what raised naming items 7a2, 7c and 7e until they were ported: each
+def _dist_config(**kw):
+    """The same DistributedConfig in both packages: every attribute the JAX
+    one sets but its default name, on the port's (plus its ``device``)."""
+    from maggy_tpu.config import DistributedConfig as JDistributedConfig
+
+    want = {k: v for k, v in vars(JDistributedConfig(**kw)).items() if k != "name"}
+    got = vars(DistributedConfig(device="cpu", **kw))
+    return {k: got[k] for k in want}, want
+
+
+# what raised naming items 7a2, 7c, 7e and 7f until they were ported: each
 # builds now, as the JAX package's does
 @pytest.mark.parametrize("make", [
     lambda: (ShardingSpec(sp=2, fsdp=2).axis_sizes(), JShardingSpec(sp=2, fsdp=2).axis_sizes()),
@@ -246,8 +256,13 @@ def _trainer_zero_stage_1():
     lambda: (ShardingSpec.preset("pp", 4).axis_sizes(), JShardingSpec.preset("pp", 4).axis_sizes()),
     lambda: (TrainContext(ShardingSpec(), None, torch.device("cpu")).trainer(
         Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), n_microbatches=2).n_microbatches, 2),
+    lambda: _dist_config(max_restarts=1),
+    lambda: _dist_config(evaluator=True, num_executors=2, data_plane="local"),
+    lambda: _dist_config(driver_addr="localhost:1"),
+    lambda: _dist_config(data_plane="local"),
 ], ids=["sp2_fsdp2", "sp2_tp2", "zero_stage", "bucket_mb", "zero_lvl_1", "config_zero_stage",
-        "config_bucket_mb", "trainer_zero_stage", "pp2", "pp_preset", "trainer_n_microbatches"])
+        "config_bucket_mb", "trainer_zero_stage", "pp2", "pp_preset", "trainer_n_microbatches",
+        "max_restarts", "evaluator", "driver_addr", "data_plane_local"])
 def test_ported_parts_build(make):
     got, want = make()
     assert got == want
@@ -256,15 +271,11 @@ def test_ported_parts_build(make):
 @pytest.mark.parametrize("make, item", [
     (lambda: ShardingSpec(ep=2), "8"),
     (lambda: ShardingSpec.preset("ep", 4), "8"),
-    (lambda: DistributedConfig(elastic=True, device="cpu"), "7f"),
-    (lambda: DistributedConfig(max_restarts=1, device="cpu"), "7f"),
-    (lambda: DistributedConfig(evaluator=True, device="cpu"), "7f"),
-    (lambda: DistributedConfig(num_slices=2, device="cpu"), "7f"),
-    (lambda: DistributedConfig(driver_addr="localhost:1", device="cpu"), "7f"),
-    (lambda: DistributedConfig(data_plane="local", device="cpu"), "7f"),
-    (lambda: DistributedConfig(min_slices=2, device="cpu"), "7f"),
+    (lambda: DistributedConfig(elastic=True, device="cpu"), "7f2"),
+    (lambda: DistributedConfig(num_slices=2, device="cpu"), "7f2"),
+    (lambda: DistributedConfig(min_slices=2, device="cpu"), "7f2"),
     (lambda: Trainer(Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), device="cpu",
-                     membership=object()), "7f"),
+                     membership=object()), "7f2"),
 ], ids=lambda v: v if isinstance(v, str) else "")
 def test_unported_parts_raise_naming_their_items(make, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\b"):
@@ -280,6 +291,7 @@ def test_new_modules_import_no_jax():
         "import maggy_tpu_torch.config.distributed, maggy_tpu_torch.core.driver.distributed\n"
         "import maggy_tpu_torch.core.executors.distributed, maggy_tpu_torch.experiment\n"
         "import maggy_tpu_torch.parallel.pipeline, maggy_tpu_torch.train.pipeline_adapter\n"
+        "import maggy_tpu_torch.core.pod, maggy_tpu_torch.run\n"
         "print(sorted(sys.modules))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -290,3 +302,4 @@ def test_new_modules_import_no_jax():
     assert [m for m in modules if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "maggy_tpu"}] == []
     assert "maggy_tpu_torch.core.executors.distributed" in modules
     assert "maggy_tpu_torch.parallel.pipeline" in modules and "maggy_tpu_torch.train.pipeline_adapter" in modules
+    assert "maggy_tpu_torch.core.pod" in modules and "maggy_tpu_torch.run" in modules

@@ -243,7 +243,36 @@ Phases, each printing one line:
             launcher respawns it, the lost trial is requeued, all 3 trials
             finish once, each with exact flash launches. Each trial's mean
             step and the study's wall time; budget 90 s.
-20. train.resume  the ``train`` configuration from disk: seeded tokens
+    dist.elastic  elastic membership under ``lagom(train_fn,
+            DistributedConfig(elastic=True))`` at the ``train`` widths and
+            depth 1 (1.27 B fp32 parameters, S=2048), from this process (its
+            cached card memory freed first). Workers mode, one slice a
+            rank, ``data_plane="local"``: two replicas from seed 0 (on one
+            card both on ``cuda:0``), each a ``Trainer`` with the rank's
+            membership; chaos kills rank 1 at step 3. The driver makes the
+            death a slice drop (epoch 1, no restart slot); the survivor
+            meets the new epoch at its next step boundary, saves once there
+            (the only save: no periodic one in the run) and re-enters its
+            train_fn from it. The run completes with one worker, 0 restart
+            slots, one drop; every loss of the survivor, after the reshape
+            too, equal bit for bit to one uninterrupted process's; no step
+            re-run; the flash launches 2 / 1 / 1 a step. The save, the
+            restore, the reshape barrier and the phase's time; budget 120 s.
+    dist.elastic.slices  with two or more cards: ``num_slices=2``,
+            ``data_plane="auto"`` over NCCL, one rank a slice (two, fsdp=2,
+            on four cards), 4 rows a batch, 6 steps; chaos drops slice 1 at
+            step 3 and rejoins it at step 5, so each rank leaves its group
+            and joins one at the new width twice in its process. The
+            periodic checkpoint at step 2 (the others are skipped: each is
+            a 15.3 GB synchronous write) and the rejoin's graceful one at 5.
+            Epoch 2, the chief resuming from 2 then 5, every batch index
+            committed once, the parked slice's ranks back at step 5, every
+            rank's losses within 5e-4 and its last grad norm within 2e-3 of
+            one process's, flash launches exact; the reshape barriers and
+            each re-formation's time; budget 180 s. With one card
+            ``"ran": false``.
+20. train.resume  the ``train`` configuration cut to 2 layers (so that the
+            whole run keeps under its time), from disk: seeded tokens
             written by ``write_sharded`` into a temporary directory, read
             through ``ShardedDataset`` and the native batcher (it must be
             native) into ``fit``'s prefetcher (depth 2). Run A takes 8
@@ -271,8 +300,9 @@ Then a ``{"kernels": [...]}`` line (each kernel's launches: those of
 ``train``, ``ring.train``, ``lagom.ablation``'s Decoder study,
 ``dist.lagom``'s rank, rank 0 of ``dist.mesh``, ``dist.seq``, ``dist.zero``
 and ``dist.pipe`` (its single-stage part too), every rank of
-``pod.elastic`` and every trial of ``pod.hpo``, ``train.resume`` and
-``train.remat``), the card's name and power limit, and as
+``pod.elastic``, every trial of ``pod.hpo``, every rank of both
+``dist.elastic`` runs, ``train.resume`` and ``train.remat``), the card's
+name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before that line. With no CUDA it exits non-zero at once.
 """
@@ -457,10 +487,29 @@ POD_ELASTIC_BUDGET_S = 120
 POD_HPO_TRIALS = 3
 POD_HPO_STEPS = 2
 POD_HPO_BUDGET_S = 90
-# train.resume: the `train` configuration from ROWS rows of tokens written as
-# SHARDS shards; run A takes STEPS steps, run B checkpoints every EVERY steps
-# until a preemption notice after step NOTICE, run C resumes it. A checkpoint
-# is the fp32 parameters and both AdamW moments, 12 bytes a parameter
+# dist.elastic: the `train` widths at depth POD_LAYERS under elastic
+# membership. Workers mode: two replicas, rank 1 killed by chaos at step
+# ELASTIC_KILL_AT, the survivor held at the broadcast of step
+# ELASTIC_KILL_AT + 1 until the heartbeat announced the new epoch (up to
+# ELASTIC_HOLD_S), so that it meets the reshape at the next step boundary
+# however fast it trains. Slices (2+ cards): 2 slices, ELASTIC_ROWS rows a
+# batch (a row for each of four ranks), slice 1 dropped at ELASTIC_DROP_AT
+# and rejoined at ELASTIC_REJOIN_AT, the periodic checkpoint only at
+# ELASTIC_SAVE_AT
+ELASTIC_STEPS = 6
+ELASTIC_KILL_AT = 3
+ELASTIC_HOLD_S = 60
+ELASTIC_ROWS = 4
+ELASTIC_DROP_AT, ELASTIC_REJOIN_AT, ELASTIC_SAVE_AT = 3, 5, 2
+DIST_ELASTIC_BUDGET_S = 120
+DIST_ELASTIC_SLICES_BUDGET_S = 180
+# train.resume: the `train` configuration at depth RESUME_LAYERS (cut from
+# N_LAYERS so that the whole run, with dist.elastic, keeps under ~900 s)
+# from ROWS rows of tokens written as SHARDS shards; run A takes STEPS
+# steps, run B checkpoints every EVERY steps until a preemption notice
+# after step NOTICE, run C resumes it. A checkpoint is the fp32 parameters
+# and both AdamW moments, 12 bytes a parameter
+RESUME_LAYERS = 2
 RESUME_STEPS = 8
 RESUME_EVERY = 4
 RESUME_NOTICE = 5
@@ -4162,6 +4211,360 @@ def phase_pod_hpo(torch, card: str, model=("llama3_8b", dict(n_layers=POD_LAYERS
     return total
 
 
+# ------------------------------------------------------------- dist.elastic
+
+
+def _elastic_checkpointer(directory: str, keep=None):
+    """A ``Checkpointer`` (every save synchronous) that times each save and
+    restore into its ``times`` and, with ``keep``, writes only the steps in
+    it."""
+    from maggy_tpu_torch.train import Checkpointer
+
+    class Timed(Checkpointer):
+        def save(self, step, state, meta=None):
+            if keep is not None and step not in keep:
+                return
+            t = time.perf_counter()
+            super().save(step, state, meta=meta)
+            super().wait()
+            self.times.append(("save", int(step), time.perf_counter() - t))
+
+        def restore(self, *args, **kw):
+            t = time.perf_counter()
+            out = super().restore(*args, **kw)
+            self.times.append(("restore", out.step, time.perf_counter() - t))
+            return out
+
+    ckpt = Timed(directory, max_to_keep=2, async_save=False)
+    ckpt.times = []
+    return ckpt
+
+
+class _ElasticRecord:
+    """A train_fn entry's reporter: each step's loss (``fit`` broadcasts the
+    step it just took, ``metrics_window=0``) and the flash launches since
+    the entry began; with ``hold_at``, the broadcast of that step waits (up
+    to ELASTIC_HOLD_S) until the heartbeat announced a newer epoch."""
+
+    def __init__(self, rec: dict, membership, hold_at=None):
+        self.rec, self.membership, self.hold_at = rec, membership, hold_at
+
+    def broadcast(self, value, step):
+        from maggy_tpu_torch.ops import flash
+
+        self.rec["losses"][str(step)] = value
+        self.rec["launches"][str(step)] = dict(flash.LAUNCHES)
+        self.rec.setdefault("first_step_at", time.time())
+        if step == self.hold_at and self.membership.epoch == 0:
+            t, deadline = time.time(), time.time() + ELASTIC_HOLD_S
+            while self.membership.pending_epoch() is None and time.time() < deadline:
+                time.sleep(0.01)
+            self.rec["held_s"] = time.time() - t
+
+
+class _ServedBatches:
+    """The ``train`` stream after its first batch (the sample ``make_state``
+    takes), logging the index of every batch served to ``fit`` and where a
+    resume skipped to."""
+
+    def __init__(self, data, segment: dict):
+        self._it, self._pos, self.segment = data, 0, segment
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self._it)
+        self.segment["served"].append(self._pos)
+        self._pos += 1
+        return batch
+
+    def skip(self, n):
+        for _ in range(n):
+            next(self._it)
+        self._pos += n
+        self.segment["resume_from"] = self._pos
+        return n
+
+
+def dist_elastic_train(model, hparams, ctx, trial_dir):
+    """dist.elastic's train_fn, run by every rank at every entry: the
+    ``train`` steps from seed 0 (batch ``i + 1`` at step ``i``), a
+    checkpoint in the chief's directory, ``fit(resume="auto")``. Workers
+    mode trains each replica alone (a ``Trainer`` with the rank's
+    membership, no mesh); slices train on the context's sliced mesh. Each
+    entry appends its record (the rank, the epoch, the resume point, the
+    batches served, the losses, the launches, the save and restore times)
+    to ``<out>/<pid>.jsonl``."""
+    import torch
+
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.train import Trainer, adamw, synthetic_lm_batches
+
+    rec = dict(t0=time.time(), rank=ctx.process_index, world=ctx.num_processes, epoch=ctx.membership.epoch,
+               device=str(ctx.device), mesh={k: v for k, v in zip(ctx.mesh.mesh_dim_names, ctx.mesh.mesh.shape)
+                                             if v > 1},
+               losses={}, launches={}, resume_from=0, served=[])
+    if hparams["mode"] == "workers":
+        trainer = Trainer(model, adamw(1e-4), device=ctx.device, membership=ctx.membership)
+    else:
+        trainer = ctx.trainer(model, adamw(1e-4))
+    data = synthetic_lm_batches(model.cfg.vocab_size, hparams["rows"], hparams["seq"], seed=0)
+    state = trainer.make_state(0, next(data))
+    keep = hparams.get("keep")
+    ckpt = _elastic_checkpointer(os.path.join(trial_dir, "ckpt"), keep=None if keep is None else set(keep))
+    report = _ElasticRecord(rec, ctx.membership, hparams.get("hold_at"))
+    flash.reset_launches()
+    try:
+        state, metrics = trainer.fit(state, _ServedBatches(data, rec), hparams["steps"], reporter=report,
+                                     report_every=1, metrics_window=0, checkpointer=ckpt,
+                                     checkpoint_every=hparams["every"], resume="auto", prefetch=0)
+        rec.update(end_step=int(state.step), grad_norm=float(metrics["grad_norm"]))
+    finally:
+        ckpt.close()
+        rec.update(times=ckpt.times, ended=time.time(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30 if ctx.device.type == "cuda" else None)
+        with open(os.path.join(hparams["out"], f"{os.getpid()}.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+    return {"metric": float(metrics["loss"]), "loss": float(metrics["loss"])}
+
+
+def reference_steps(torch, cfg, rows: int, seq: int, steps: int, device: str = "cuda:0"):
+    """One process's steps (no mesh, no membership) on the ``train`` stream
+    from seed 0: ``(losses, grad norms)``, step by step."""
+    import gc
+
+    from maggy_tpu_torch.models import Decoder
+    from maggy_tpu_torch.train import Trainer, adamw, synthetic_lm_batches
+
+    trainer = Trainer(Decoder(cfg, device="meta"), adamw(1e-4), device=device)
+    data = synthetic_lm_batches(cfg.vocab_size, rows, seq, seed=0)
+    state = trainer.make_state(0, next(data))
+    losses, norms = [], []
+    for _ in range(steps):
+        state, m = trainer.step(state, next(data))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del state, trainer
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return losses, norms
+
+
+def _elastic_run(torch, cfg, chaos_spec: str, hparams: dict, budget_s: float, **config_kw):
+    """``lagom(dist_elastic_train, DistributedConfig(elastic=True, ...))``
+    with ``chaos_spec`` in the ranks' environment, in a temporary root:
+    the result, each process's entries, the exported counters and gauges,
+    the driver's and executors' log lines about the membership, the
+    phase's seconds. The disk must hold two checkpoints."""
+    import glob
+    import shutil
+
+    from maggy_tpu_torch import experiment
+    from maggy_tpu_torch.config import DistributedConfig
+    from maggy_tpu_torch.core import env as env_mod
+    from maggy_tpu_torch.core.env.base import BaseEnv
+    from maggy_tpu_torch.models import Decoder
+
+    root, _ = _pod_root(torch, "dist.elastic", 2, cfg)
+    out = os.path.join(root, "out")
+    before = os.environ.get("MAGGY_TPU_CHAOS")
+    os.environ["MAGGY_TPU_CHAOS"] = chaos_spec  # the spawned ranks' fault plan
+    env_mod.set_instance(BaseEnv(os.path.join(root, "logs")))
+    t0 = time.perf_counter()
+    try:
+        result = experiment.lagom(dist_elastic_train, DistributedConfig(
+            module=Decoder(cfg, device="meta"), hparams=dict(hparams, out=out), elastic=True,
+            hb_interval=LAGOM_HB, worker_timeout=budget_s + 60, **config_kw))
+        phase_s = time.perf_counter() - t0
+        exp_dir = env_mod.get_instance().experiment_dir(experiment.APP_ID, experiment.RUN_ID)
+        procs = []
+        for path in sorted(glob.glob(os.path.join(out, "*.jsonl"))):
+            with open(path) as f:
+                procs.append([json.loads(line) for line in f])
+        counters, gauges = {}, {}
+        for path in glob.glob(os.path.join(exp_dir, "telemetry", "*.jsonl")):
+            with open(path) as f:
+                for line in f:
+                    rec = json.loads(line)
+                    if rec.get("kind") == "snapshot":
+                        for k, v in (rec.get("counters") or {}).items():
+                            counters[k] = counters.get(k, 0) + v
+                        gauges.update(rec.get("gauges") or {})
+        log = []
+        for path in sorted(glob.glob(os.path.join(exp_dir, "*.log"))):
+            with open(path) as f:
+                log += [line.strip() for line in f if "membership epoch" in line or "reshape barrier" in line
+                        or "formed the group" in line]
+    finally:
+        env_mod.set_instance(None)
+        if before is None:
+            os.environ.pop("MAGGY_TPU_CHAOS", None)
+        else:
+            os.environ["MAGGY_TPU_CHAOS"] = before
+        shutil.rmtree(root, ignore_errors=True)
+    return result, procs, counters, gauges, log, phase_s
+
+
+def _launches_exact(entry: dict, per_step: dict) -> bool:
+    """Every step's flash launches since the entry began: the steps taken
+    in it times a step's."""
+    return bool(entry.get("launches")) and all(
+        n == {k: (int(step) - entry["resume_from"]) * v for k, v in per_step.items()}
+        for step, n in entry["launches"].items())
+
+
+def _committed(segments: list, total: int) -> bool:
+    """Whether the segments' batches, each cut at the next one's resume
+    point, are every index below ``total`` once."""
+    committed = []
+    for i, seg in enumerate(segments):
+        start = seg["resume_from"]
+        if seg["served"] != list(range(start, start + len(seg["served"]))):
+            return False
+        end = segments[i + 1]["resume_from"] if i + 1 < len(segments) else total
+        committed.extend(range(start, end))
+    return committed == list(range(total))
+
+
+def phase_dist_elastic(torch, card: str, model=("llama3_8b", dict(n_layers=POD_LAYERS)), device=None,
+                       seq: int = S) -> dict:
+    """dist.elastic: elastic membership in workers mode (every card count),
+    then dist.elastic.slices with two or more cards. Returns every rank's
+    flash launches. ``model`` and ``device="cpu"`` rehearse it on the CPU
+    at a tiny size, where every check but the launches and the budget can
+    pass (the slices part needs cards)."""
+    from maggy_tpu_torch.models import DecoderConfig
+
+    t_phase = time.perf_counter()
+    cfg = getattr(DecoderConfig, model[0])(**model[1])
+    per_step = flash_launches_per_step(cfg.n_layers)
+    import gc
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    ref_losses, _ = reference_steps(torch, cfg, B, seq, ELASTIC_STEPS, device=device or "cuda:0")
+    hparams = dict(mode="workers", rows=B, seq=seq, steps=ELASTIC_STEPS, every=10 * ELASTIC_STEPS,
+                   hold_at=ELASTIC_KILL_AT + 1)
+    result, procs, counters, gauges, log, lagom_s = _elastic_run(
+        torch, cfg, f"kill:worker=1,step={ELASTIC_KILL_AT}", hparams, DIST_ELASTIC_BUDGET_S, sharding="dp",
+        num_executors=2, data_plane="local", device=device)
+    phase_s = time.perf_counter() - t_phase
+    entries = [e for p in procs for e in p]
+    survivor = next((p for p in procs if len(p) == 2), [])
+    killed = next((p for p in procs if len(p) == 1 and p[0].get("end_step") is None), [])
+    times = [t for e in entries for t in e["times"]]
+    losses_equal = bool(survivor) and all(
+        v == ref_losses[int(step) - 1] for e in survivor + killed for step, v in e["losses"].items())
+    checks = {
+        "one_worker": result.get("num_workers") == 1,
+        "no_restart_slot": counters.get("resilience.dist_restarts", 0) == 0,
+        "one_drop_epoch_1": counters.get("resilience.slice_drops") == 1 and gauges.get(
+            "resilience.membership_epoch") == 1,
+        "rank1_killed_at_step": bool(killed) and killed[0]["served"] == list(range(ELASTIC_KILL_AT)),
+        "survivor_reshaped_once": [e["epoch"] for e in survivor] == [0, 1]
+        and survivor[1]["resume_from"] == len(survivor[0]["served"]) <= ELASTIC_KILL_AT + 1,
+        "no_step_rerun": bool(survivor) and _committed(survivor, ELASTIC_STEPS)
+        and survivor[1].get("end_step") == ELASTIC_STEPS,
+        "one_save": [list(t[:2]) for t in times if t[0] == "save"] == [["save", survivor[1]["resume_from"]]]
+        if survivor else False,
+        "losses_bit_equal_to_one_process": losses_equal,
+        "launches": bool(entries) and all(_launches_exact(e, per_step) for e in entries),
+        "devices": all(e["device"] == ("cpu" if device == "cpu" else "cuda:0") for e in survivor),
+        "within_budget": phase_s <= DIST_ELASTIC_BUDGET_S,
+    }
+    ok = all(checks.values())
+    emit(
+        "dist.elastic", ok=ok, checks=checks, mode="workers", data_plane="local", steps=ELASTIC_STEPS,
+        kill_at=ELASTIC_KILL_AT, result=result,
+        segments=[dict(epoch=e["epoch"], resume_from=e["resume_from"], served=e["served"], device=e["device"])
+                  for e in survivor + killed],
+        losses={f"epoch{e['epoch']}": e["losses"] for e in survivor}, reference=ref_losses,
+        save_and_restore_s=times, held_s=[e.get("held_s") for e in survivor],
+        reshape_ms=gauges.get("resilience.reshape_ms"), membership_log=log,
+        counters={k: v for k, v in counters.items() if k.startswith("resilience.")},
+        peak_gib=[e.get("peak_gib") for e in entries], launches_per_step=per_step, lagom_s=lagom_s,
+        phase_s=phase_s, budget_s=DIST_ELASTIC_BUDGET_S, card=card,
+    )
+    if not ok:
+        raise SystemExit(f"dist.elastic failed: {[k for k, v in checks.items() if not v]}")
+    total = {k: 0 for k in per_step}
+    for e in entries:
+        last = e["launches"][max(e["launches"], key=int)]
+        for k in total:
+            total[k] += last[k]
+    if (torch.cuda.device_count() if device is None else 0) >= 2:
+        for k, v in phase_dist_elastic_slices(torch, cfg, card, seq).items():
+            total[k] += v
+    else:
+        emit("dist.elastic.slices", ran=False, ok=True, reason="needs two or more cards", card=card)
+    return total
+
+
+def phase_dist_elastic_slices(torch, cfg, card: str, seq: int = S, device=None, ranks=None) -> dict:
+    """dist.elastic.slices (two or more cards): 2 slices of one rank (two,
+    fsdp=2, on four cards) over NCCL; slice 1 dropped at ELASTIC_DROP_AT
+    and rejoined at ELASTIC_REJOIN_AT. Returns every rank's flash
+    launches. ``device="cpu"`` and ``ranks`` rehearse it over gloo ranks,
+    where every check but the launches and the devices can pass."""
+    t_phase = time.perf_counter()
+    per_step = flash_launches_per_step(cfg.n_layers)
+    ranks = ranks or (4 if torch.cuda.device_count() >= 4 else 2)
+    ref_losses, ref_norms = reference_steps(torch, cfg, ELASTIC_ROWS, seq, ELASTIC_STEPS, device=device or "cuda:0")
+    hparams = dict(mode="slices", rows=ELASTIC_ROWS, seq=seq, steps=ELASTIC_STEPS, every=ELASTIC_SAVE_AT,
+                   keep=[ELASTIC_SAVE_AT, ELASTIC_REJOIN_AT])
+    spec = f"slice_drop:slice=1,step={ELASTIC_DROP_AT};slice_rejoin:slice=1,step={ELASTIC_REJOIN_AT}"
+    result, procs, counters, gauges, log, lagom_s = _elastic_run(
+        torch, cfg, spec, hparams, DIST_ELASTIC_SLICES_BUDGET_S, sharding="fsdp", num_executors=ranks,
+        num_slices=2, data_plane="auto", device=device)
+    phase_s = time.perf_counter() - t_phase
+    entries = [e for p in procs for e in p]
+    chief = sorted((e for e in entries if e["rank"] == 0), key=lambda e: e["epoch"])
+    loss_rel = max((_rel(v, ref_losses[int(step) - 1]) for e in entries for step, v in e["losses"].items()),
+                   default=float("inf"))
+    finals = [e for e in entries if "grad_norm" in e]
+    norm_rel = max((_rel(e["grad_norm"], ref_norms[-1]) for e in finals), default=float("inf"))
+    times = [t for e in entries for t in e["times"]]
+    checks = {
+        "every_rank_at_the_end": result.get("num_workers") == ranks and len(finals) == ranks,
+        "epoch_2": gauges.get("resilience.membership_epoch") == 2 and counters.get(
+            "resilience.slice_drops") == 1 and counters.get("resilience.slice_rejoins") == 1,
+        "chief_resumes_from": [e["resume_from"] for e in chief] == [0, ELASTIC_SAVE_AT, ELASTIC_REJOIN_AT]
+        and [e["epoch"] for e in chief] == [0, 1, 2],
+        "exactly_once": _committed(chief, ELASTIC_STEPS),
+        "widths": [e["world"] for e in chief] == [ranks, ranks // 2, ranks],
+        "parked_slice_back": sum(1 for p in procs if [e["epoch"] for e in p] == [0, 2]) == ranks // 2,
+        "held_to_one_process": loss_rel <= TOL_MESH_LOSS_REL and norm_rel <= TOL_MESH_GRAD_NORM_REL,
+        "launches": bool(entries) and all(_launches_exact(e, per_step) for e in entries),
+        "devices": sorted({p[0]["device"] for p in procs}) == [f"cuda:{r}" for r in range(ranks)]
+        and all(len({e["device"] for e in p}) == 1 for p in procs),
+        "within_budget": phase_s <= DIST_ELASTIC_SLICES_BUDGET_S,
+    }
+    ok = all(checks.values())
+    emit(
+        "dist.elastic.slices", ran=True, ok=ok, checks=checks, ranks=ranks, steps=ELASTIC_STEPS,
+        drop_at=ELASTIC_DROP_AT, rejoin_at=ELASTIC_REJOIN_AT, result=result,
+        chief=[dict(epoch=e["epoch"], world=e["world"], mesh=e["mesh"], resume_from=e["resume_from"],
+                    served=e["served"]) for e in chief],
+        losses={f"rank{e['rank']}.epoch{e['epoch']}.{e['device']}": e["losses"] for e in entries},
+        reference=ref_losses, reference_grad_norms=ref_norms, loss_rel=loss_rel, grad_norm_rel=norm_rel,
+        tol=dict(loss_rel=TOL_MESH_LOSS_REL, grad_norm_rel=TOL_MESH_GRAD_NORM_REL),
+        save_and_restore_s=times, reshape_ms=gauges.get("resilience.reshape_ms"), membership_log=log,
+        peak_gib=[e.get("peak_gib") for e in entries], launches_per_step=per_step, lagom_s=lagom_s,
+        phase_s=phase_s, budget_s=DIST_ELASTIC_SLICES_BUDGET_S, card=card,
+    )
+    if not ok:
+        raise SystemExit(f"dist.elastic.slices failed: {[k for k, v in checks.items() if not v]}")
+    total = {k: 0 for k in per_step}
+    for e in entries:
+        last = e["launches"][max(e["launches"], key=int)]
+        for k in total:
+            total[k] += last[k]
+    return total
+
+
 def _category(name: str) -> str:
     low = name.lower()
     # the three attention kernels, whether a flash or a ring wrapper launched them
@@ -4322,12 +4725,16 @@ def main(argv=None) -> int:
     # worker process is killed and respawned
     pod_launches = phase_pod_elastic(torch, card)
     hpo_launches = phase_pod_hpo(torch, card)
+    # elastic membership: a replica's death as a slice drop, then (2+
+    # cards) slices dropped and rejoined inside a live NCCL run
+    elastic_launches = phase_dist_elastic(torch, card)
     # the rest of the Trainer: checkpoints, the preemption save and resume
     # from sharded data, then the remat policies; their flash launches join
     # the `train` phase's in the kernels line
     for more in (ablation_launches, single["launches"], mesh_launches, seq_launches, zero_launches, pipe_launches,
-                 pod_launches, hpo_launches,
-                 phase_train_resume(torch, cfg, S, card, train_peak, train_step_ms),
+                 pod_launches, hpo_launches, elastic_launches,
+                 phase_train_resume(torch, DecoderConfig.llama3_8b(n_layers=RESUME_LAYERS), S, card, train_peak,
+                                    train_step_ms),
                  phase_train_remat(torch, cfg, S, card)):
         for name, n in more.items():
             launches[name] += n

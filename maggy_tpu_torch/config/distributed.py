@@ -9,10 +9,10 @@ onto the layouts as in JAX: 0 → dp, 2 or 3 → fsdp, 1 → dp with
 ``zero_stage=1`` (ZeRO-1 over ``data``); ``zero_stage`` and ``bucket_mb``
 are stamped onto the resolved spec, whose trainer they configure
 (:meth:`~maggy_tpu_torch.train.TrainContext.trainer`). Pod mode
-(``driver_addr``), ``data_plane="local"``, the evaluator and
-``max_restarts`` take the JAX config's meanings; elastic membership
-(``elastic``, ``num_slices``, ``min_slices > 1``) raises, naming ROADMAP
-queue 1 item 7f2.
+(``driver_addr``), ``data_plane="local"``, the evaluator,
+``max_restarts`` and elastic membership (``elastic``, ``num_slices``,
+``min_slices``) take the JAX config's meanings, with slices made of rank
+processes (:mod:`maggy_tpu_torch.core.driver.distributed`).
 """
 
 from __future__ import annotations
@@ -23,10 +23,6 @@ from typing import Any, Callable, Optional, Union
 
 from maggy_tpu_torch.config.base import LagomConfig
 from maggy_tpu_torch.parallel.spec import ShardingSpec
-
-
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is ROADMAP queue 1 item {item}, not ported yet")
 
 
 class DistributedConfig(LagomConfig):
@@ -97,6 +93,17 @@ class DistributedConfig(LagomConfig):
             from its latest checkpoint. Under ``data_plane="auto"`` with
             more than one rank every rank is relaunched together, for one
             slot. Env override: ``MAGGY_TPU_MAX_RESTARTS``.
+        :param elastic: elastic membership: a lost slice leaves the mesh
+            (the survivors go on at the reduced width from the checkpoint
+            every member agrees on) and a returning one rejoins it, without
+            a ``max_restarts`` slot. The train_fn needs a checkpointer and
+            ``fit(resume="auto")``.
+        :param min_slices: the fewest active slices; a drop below it fails
+            the run with ``MembershipViolation``.
+        :param num_slices: the launch's slices, each a contiguous block of
+            ``num_executors / num_slices`` ranks of one process group
+            (``data_plane="auto"``), under the mesh's outer ``slice`` axis.
+            None: each rank is one slice of its own.
         :param device: None for CUDA cards (``lagom`` raises without CUDA),
             ``"cpu"`` for gloo ranks on the CPU.
         """
@@ -141,24 +148,18 @@ class DistributedConfig(LagomConfig):
         if max_restarts < 0:
             raise ValueError("max_restarts must be >= 0")
         self.max_restarts = int(max_restarts)
+        self.elastic = bool(elastic)
         if min_slices < 1:
             raise ValueError("min_slices must be >= 1")
+        self.min_slices = int(min_slices)
         if num_slices is not None and num_slices < 1:
             raise ValueError("num_slices must be >= 1")
-        if self.evaluator and elastic:
+        self.num_slices = num_slices
+        if self.evaluator and self.elastic:
             raise ValueError(
                 "elastic=True does not compose with evaluator=True: the "
                 "evaluator partition sits outside the training membership"
             )
-        if elastic:
-            _refuse("elastic membership (elastic=True)", "7f2")
-        self.elastic = False
-        if min_slices > 1:
-            _refuse(f"elastic shrinking of the mesh (min_slices={min_slices})", "7f2")
-        self.min_slices = 1
-        if num_slices is not None:
-            _refuse(f"a multi-slice mesh (num_slices={num_slices})", "7f2")
-        self.num_slices = None
         self.device = device
 
     def resolve_sharding(self, num_devices: int) -> ShardingSpec:

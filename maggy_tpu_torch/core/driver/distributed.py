@@ -1,6 +1,5 @@
 """Distributed-training driver: the port's counterpart of
-:mod:`maggy_tpu.core.driver.distributed`, without elastic membership
-(ROADMAP queue 1 item 7f2).
+:mod:`maggy_tpu.core.driver.distributed`.
 
 One registration barrier, an ``EXEC_CONFIG`` exchange that tells every
 rank the rendezvous (``MASTER_ADDR``, a free ``MASTER_PORT``, the world
@@ -23,6 +22,31 @@ under ``data_plane="auto"`` with more than one rank leaves its peers
 inside collectives that can never take a new peer: every rank is
 terminated and the whole group relaunched, for one slot. Under
 ``data_plane="local"``, or with one rank, only the dead partition is.
+
+Elastic membership (``elastic=True``), as in JAX: epoch-numbered views of
+the active slices, the ``SLICE_EVENT`` and ``MEMBERSHIP`` verbs, the
+reshape barrier with its acks, the view in ``EXEC_CONFIG`` and the
+heartbeat's ``RESHAPE`` reply, ``min_slices`` as a clean floor
+(``MembershipViolation`` is the experiment's error) and the gauges and
+counters of the JAX driver. A slice is a contiguous block of rank
+processes:
+
+* ``num_slices=N`` (mode ``"sim"``): the ``num_executors`` spawned ranks
+  are N slices of one process group (``data_plane="auto"``). At each epoch
+  the ranks of the active slices leave their group and form a new one at
+  the new width, on a fresh rendezvous this driver hands out with the
+  epoch's ``EXEC_CONFIG``; a dropped slice's ranks stay parked at the
+  barrier until a view takes their slice back in, or until the run ends
+  and releases them (their ``FINAL`` carries no result).
+* ``num_slices=None`` (mode ``"workers"``): each rank is one slice. A rank
+  that dies is a drop and charges no restart slot. Under
+  ``data_plane="local"`` the survivors reshape in their processes; under
+  ``data_plane="auto"`` a dead rank leaves its peers inside a collective,
+  so the survivors are terminated and relaunched at the reduced width,
+  resuming from the latest checkpoint (a deliberate divergence: JAX's
+  survivors reshape in place).
+
+``result["num_workers"]`` counts the ranks active at the end.
 """
 
 from __future__ import annotations
@@ -37,6 +61,7 @@ from typing import Any, Callable, Dict, List
 from maggy_tpu_torch.core import rpc
 from maggy_tpu_torch.core.driver.base import Driver, device_groups
 from maggy_tpu_torch.core.executors.distributed import check_picklable, dist_executor_fn
+from maggy_tpu_torch.parallel.mesh import slice_device_groups
 
 # seconds a rank gets to exit after SIGTERM before it is killed
 TERMINATE_GRACE_S = 5.0
@@ -103,6 +128,38 @@ class DistributedTrainingDriver(Driver):
         self._restarted_at: Dict[int, int] = {}  # partition -> epoch of last restart
         self._charged_epoch = -1  # the epoch whose group restart is charged and queued
         self._tearing_down = False  # a group restart is reaping the old ranks
+        # elastic membership (docs/resilience.md "Elastic membership"):
+        # epoch-numbered views of the active slices; on a slice's loss or
+        # return the mesh reshapes instead of relaunching at the same width
+        self.elastic = bool(getattr(config, "elastic", False))
+        self.membership = None
+        self._member_acks: Dict[int, int] = {}  # partition -> last acked epoch
+        self._reshape_t0 = 0.0  # perf_counter at the last epoch bump
+        self._reshape_epoch_timed = -1  # epoch whose barrier was already gauged
+        self._relaunching = False  # a workers-mode drop is queued to relaunch the survivors
+        self._per_slice = 1  # ranks a slice
+        if self.elastic:
+            from maggy_tpu_torch.resilience.membership import MembershipView
+
+            total = int(getattr(config, "num_slices", None) or self.num_executors)
+            min_slices = int(getattr(config, "min_slices", 1))
+            if min_slices > total:
+                raise ValueError(f"min_slices={min_slices} exceeds the launch width ({total} slice(s))")
+            self._per_slice = len(slice_device_groups(total, range(self.num_executors))[0])
+            mode = "sim" if getattr(config, "num_slices", None) is not None else "workers"
+            if mode == "sim" and (self.pod_mode or config.data_plane != "auto"):
+                raise ValueError(
+                    "num_slices lays slices out as blocks of the spawned ranks of one process group: it needs "
+                    "data_plane='auto' and no driver_addr (num_slices=None makes each rank a slice of its own)"
+                )
+            if self.pod_mode and config.data_plane == "auto" and self.num_executors > 1:
+                raise NotImplementedError(
+                    "elastic membership over a launcher-formed pod group (driver_addr with data_plane='auto') is "
+                    "ROADMAP queue 1 item 7f3, not ported yet; data_plane='local' runs it, each pod process a slice"
+                )
+            self.membership = MembershipView.full(total, min_slices, mode=mode)
+            self.telemetry.gauge("resilience.membership_epoch", 0)
+            self.telemetry.gauge("resilience.active_slices", total)
 
     @property
     def _group_restarts(self) -> bool:
@@ -126,6 +183,13 @@ class DistributedTrainingDriver(Driver):
         )
         s.register_callback("METRIC", self._metric_callback)
         s.register_callback("FINAL", self._final_callback)
+        if self.elastic:
+            # the membership protocol: SLICE_EVENT reports a drop or rejoin
+            # for digestion; MEMBERSHIP is the reshape barrier's poll, which
+            # records the caller's acked epoch and says whether every
+            # member has converged
+            s.register_callback("SLICE_EVENT", self._slice_event_callback)
+            s.register_callback("MEMBERSHIP", self._membership_callback)
         s.register_callback("GET", lambda m: {"type": "GSTOP"})
         s.register_callback("LOG", lambda m: {"type": "LOG", "logs": self.drain_logs(), "progress": ""})
 
@@ -134,9 +198,19 @@ class DistributedTrainingDriver(Driver):
             self._last_seen[pid] = time.time()
 
     def _reg_callback(self, msg) -> Dict[str, Any]:
-        self.server.reservations.register(msg["partition_id"], msg.get("meta", {}))
-        self._touch(msg["partition_id"])
+        pid = msg["partition_id"]
+        restarted = self.server.reservations.register(pid, msg.get("meta", {}))
+        self._touch(pid)
+        if restarted and self.elastic and self.membership.mode == "workers" and pid in self.membership.inactive:
+            # a dropped slice's worker came back (a supervisor's respawn):
+            # its rejoin epoch reshapes every survivor back to the wider mesh
+            self.server.enqueue({"type": "_SLICE_EVENT", "kind": "rejoin", "slice": pid, "partition_id": pid})
         return {"type": "OK"}
+
+    def _slice_partitions(self, slices) -> List[int]:
+        """The partitions (ranks of the launch) of ``slices``, in slice order."""
+        per = self._per_slice
+        return [s * per + i for s in sorted(slices) for i in range(per)]
 
     def _exec_config_callback(self, msg) -> Dict[str, Any]:
         """The cluster layout: every spawned rank gets the same rendezvous
@@ -145,19 +219,25 @@ class DistributedTrainingDriver(Driver):
         the driver's experiment directory. The evaluator is outside the
         training group (reference: the TF evaluator is not in the
         TF_CONFIG worker list)."""
+        pid = int(msg["partition_id"])
+        view = self.membership
         with self.lock:
-            if self._master is None:
-                self._master = ("127.0.0.1", int(self.config.coordinator_port or _free_port()))
-            addr, port = self._master
+            # one rendezvous a generation of the group: a restart or a new
+            # membership epoch forms the group anew on a fresh port
+            key = (self._restart_epoch, view.epoch if view is not None else 0)
+            if self._master is None or self._master[0] != key:
+                fresh = self._master is not None or not self.config.coordinator_port
+                self._master = (key, "127.0.0.1", _free_port() if fresh else int(self.config.coordinator_port))
+            _, addr, port = self._master
         spec = self.server.reservations.cluster_spec()
         # advertised only on pods, where the launcher formed the group
         coordinator = os.environ.get("MAGGY_TPU_COORDINATOR") if self.pod_mode else None
         num_processes = self.num_executors - (1 if self.evaluator_partition is not None else 0)
-        return {
+        out = {
             "type": "EXEC_CONFIG",
             "num_processes": num_processes,
             "world_size": num_processes,
-            "rank": int(msg["partition_id"]),
+            "rank": pid,
             "master_addr": addr,
             "master_port": port,
             "coordinator": coordinator,
@@ -166,6 +246,16 @@ class DistributedTrainingDriver(Driver):
             "app_id": self.app_id,
             "run_id": self.run_id,
         }
+        if view is not None:
+            # membership rides the config exchange: a reshape re-runs
+            # EXEC_CONFIG, so the layout a rank builds is always the one the
+            # current epoch's view describes; the group is the active
+            # slices' ranks, each at its place among them
+            ranks = self._slice_partitions(view.active)
+            out.update(membership=view.as_dict(), ranks_per_slice=self._per_slice, num_processes=len(ranks),
+                       world_size=len(ranks), rank=ranks.index(pid) if pid in ranks else None)
+            self._ack(pid, view.epoch)
+        return out
 
     def _metric_callback(self, msg) -> Dict[str, Any]:
         self._touch(msg["partition_id"])
@@ -173,7 +263,62 @@ class DistributedTrainingDriver(Driver):
         self.server.enqueue(msg)
         if self.abort.is_set():
             return {"type": "STOP"}
+        if self.elastic and msg.get("epoch") is not None:
+            view = self.membership  # one read: digestion swaps whole views
+            if int(msg["epoch"]) < view.epoch:
+                # this rank runs a stale layout: its fit raises
+                # MembershipChanged at the next step boundary
+                return {"type": "RESHAPE", "epoch": view.epoch}
         return {"type": "OK"}
+
+    # ------------------------------------------------------- membership verbs
+
+    def _slice_event_callback(self, msg) -> Dict[str, Any]:
+        """A rank observed a slice drop or rejoin: queued for digestion,
+        which bumps the epoch and does the accounting."""
+        self.server.enqueue({"type": "_SLICE_EVENT", "kind": msg.get("kind"), "slice": msg.get("slice"),
+                             "partition_id": msg.get("partition_id"), "step": msg.get("step")})
+        return {"type": "OK"}
+
+    def _membership_callback(self, msg) -> Dict[str, Any]:
+        """The reshape barrier's poll: record the caller's acked epoch;
+        ready once every member has acked the current one. No member
+        re-forms its group before all of them have left the old one, saved
+        the step the transition asks for and agreed on the view. A parked
+        rank is released once every active rank has sent its FINAL."""
+        pid, acked = msg.get("partition_id"), msg.get("epoch")
+        view = self.membership
+        if pid is not None and acked is not None:
+            self._ack(int(pid), int(acked))
+        with self.lock:
+            ready = self._converged(view)
+            release = all(p in self._final_pids for p in self._slice_partitions(view.active))
+        return {"type": "MEMBERSHIP", "view": view.as_dict(), "ready": ready, "release": release,
+                "aborted": self.abort.is_set()}
+
+    def _ack(self, pid: int, epoch: int) -> None:
+        """Record ``pid``'s ack of ``epoch``; the first time every member
+        has acked an epoch gauges ``resilience.reshape_ms``."""
+        with self.lock:
+            self._member_acks[pid] = max(epoch, self._member_acks.get(pid, -1))
+            view = self.membership
+            if self._converged(view) and view.epoch > 0 and self._reshape_epoch_timed < view.epoch:
+                self._reshape_epoch_timed = view.epoch
+                ms = (time.perf_counter() - self._reshape_t0) * 1e3
+                self.telemetry.gauge("resilience.reshape_ms", ms)
+                self.log(f"Membership epoch {view.epoch}: every member acked, reshape barrier complete {ms:.1f} ms "
+                         "after the epoch bump")
+
+    def _converged(self, view) -> bool:
+        """Whether every barrier member acked ``view``'s epoch (call under
+        ``self.lock``). The members are the ranks still running: every rank
+        of a sliced group (a parked one acks from its park), the active
+        slices' workers otherwise, less those that already sent a FINAL."""
+        if view.mode == "sim":
+            members = range(self.num_executors)
+        else:
+            members = [p for p in view.active if p < self.num_executors]
+        return all(self._member_acks.get(p, -1) >= view.epoch for p in members if p not in self._final_pids)
 
     def _final_callback(self, msg) -> Dict[str, Any]:
         with self.lock:
@@ -194,6 +339,8 @@ class DistributedTrainingDriver(Driver):
 
         if self.experiment_done.is_set() or classify_failure(exc) != TRANSIENT:
             return False
+        if self.elastic and self.membership.mode == "workers":
+            return self._death_as_drop(partition_id, exc)
         with self.lock:
             if self._group_restarts and (self._tearing_down or self._charged_epoch == self._restart_epoch):
                 return True
@@ -217,6 +364,23 @@ class DistributedTrainingDriver(Driver):
                 "epoch": observed_epoch,
             }
         )
+        return True
+
+    def _death_as_drop(self, partition_id: int, exc: BaseException) -> bool:
+        """Workers mode: the slice is the rank, so its death is a membership
+        drop, and no restart slot is charged (a ``min_slices`` violation
+        aborts from digestion). In one group of spawned ranks the drop also
+        relaunches the survivors; the deaths it causes (the survivors
+        reaped, a peer's lost collective) are absorbed with it."""
+        with self.lock:
+            if self._group_restarts:
+                if (self._relaunching or getattr(exc, "peer_lost", False)
+                        or partition_id not in self.membership.active):
+                    return True
+                self._relaunching = True
+        self.telemetry.count("resilience.worker_deaths")
+        self.server.enqueue({"type": "_SLICE_EVENT", "kind": "drop", "slice": partition_id,
+                             "partition_id": partition_id, "error": f"{type(exc).__name__}: {exc}"})
         return True
 
     def _digest_restart(self, msg: Dict[str, Any]) -> None:
@@ -274,10 +438,91 @@ class DistributedTrainingDriver(Driver):
         )
         self._respawn_executor(pid)
 
+    def _digest_slice_event(self, msg: Dict[str, Any]) -> None:
+        """Apply a membership transition: bump the epoch, start the reshape
+        clock, and let the heartbeat and the barrier carry the new view to
+        every member. A ``min_slices`` violation aborts the run with the
+        violation as the experiment's error, never a wait on a barrier that
+        cannot complete. A workers-mode drop in one group of spawned ranks
+        then relaunches the survivors at the new width."""
+        from maggy_tpu_torch.resilience.membership import MembershipViolation
+
+        kind, slice_id = msg.get("kind"), msg.get("slice")
+        view = self.membership
+        try:
+            new = view.drop(slice_id) if kind == "drop" else view.rejoin(slice_id)
+        except (MembershipViolation, ValueError) as e:
+            self.log(f"Membership {kind} of slice {slice_id} rejected: {e}")
+            with self.lock:
+                if self.exception is None:
+                    self.exception = e
+                self._relaunching = False
+            self.abort.set()
+            self.experiment_done.set()
+            return
+        if new.epoch == view.epoch:
+            self.log(f"Membership {kind} of slice {slice_id} ignored (duplicate report at epoch {view.epoch})")
+            return
+        with self.lock:
+            self.membership = new
+            self._reshape_t0 = time.perf_counter()
+            if kind == "drop" and new.mode == "workers":  # the slice is that rank, gone
+                self._last_seen.pop(slice_id, None)
+        self.telemetry.count("resilience.slice_drops" if kind == "drop" else "resilience.slice_rejoins")
+        self.telemetry.gauge("resilience.membership_epoch", new.epoch)
+        self.telemetry.gauge("resilience.active_slices", new.n_active)
+        self.log(
+            f"Membership epoch {new.epoch}: slice {slice_id} {'left' if kind == 'drop' else 'rejoined'}"
+            + (f" ({msg['error']})" if msg.get("error") else "")
+            + f"; active slices {list(new.active)}/{new.total_slices}: reshape barrier open, the members "
+            "converge on the latest complete checkpoint"
+        )
+        if self._relaunching and kind == "drop":
+            self._relaunch_survivors(new)
+        # a drop can complete the run at once: every remaining member may
+        # already have sent its FINAL
+        self._check_elastic_completion()
+
+    def _relaunch_survivors(self, view) -> None:
+        """Workers mode over one group of spawned ranks: the survivors wait
+        inside collectives that lost a peer, so they are killed (no save)
+        and relaunched at the reduced width on a fresh rendezvous; each
+        resumes from the latest checkpoint. No restart slot is charged."""
+        survivors = [p for p in view.active if p < self.num_executors]
+        with self.lock:
+            self._tearing_down = True
+            for p in survivors:
+                self._finals = [m for m in self._finals if m["partition_id"] != p]
+                self._final_pids.discard(p)
+                self._last_seen.pop(p, None)
+        self.log(f"Slice drop in one process group: relaunching the survivors {survivors} at width {len(survivors)}")
+        self._reap_ranks(kill=True)
+        for t in list(self._worker_threads):
+            t.join(timeout=TERMINATE_GRACE_S + 5)
+        with self.lock:
+            self._tearing_down = False
+            self._relaunching = False
+        for p in survivors:
+            self._respawn_executor(p)
+
+    def _needed_finals(self) -> int:
+        if self.elastic and self.membership.mode == "workers":
+            return self.membership.n_active
+        return self.num_executors
+
+    def _check_elastic_completion(self) -> None:
+        with self.lock:
+            done = len(self._finals)
+        if done >= self._needed_finals() and not self.experiment_done.is_set():
+            self._aggregate()
+            self.experiment_done.set()
+
     def _handle_message(self, msg: Dict[str, Any]) -> None:
         verb = msg.get("type")
         if verb == "_RESTART":
             self._digest_restart(msg)
+        elif verb == "_SLICE_EVENT":
+            self._digest_slice_event(msg)
         elif verb == "METRIC":
             logs = msg.get("logs") or []
             if logs:
@@ -291,8 +536,9 @@ class DistributedTrainingDriver(Driver):
                 self._finals = [m for m in self._finals if m["partition_id"] != msg["partition_id"]]
                 self._finals.append(msg)
                 done = len(self._finals)
-            self.log(f"Worker {msg['partition_id']} finished ({done}/{self.num_executors})")
-            if done >= self.num_executors:
+            needed = self._needed_finals()
+            self.log(f"Worker {msg['partition_id']} finished ({done}/{needed})")
+            if done >= needed:
                 self._aggregate()
                 self.experiment_done.set()
 
@@ -301,8 +547,12 @@ class DistributedTrainingDriver(Driver):
         driver's ``_aggregate``, reference
         torch_distributed_training_driver.py:49-69, 137-146). The
         evaluator's outputs are reported separately, never averaged into
-        the training mean."""
+        the training mean, and neither are the empty ones of parked ranks
+        (slices inactive at the end)."""
         finals = self._finals
+        if self.elastic:
+            active = set(self._slice_partitions(self.membership.active))
+            finals = [m for m in finals if m["partition_id"] in active]
         evaluator = None
         if self.evaluator_partition is not None:
             ev = [m for m in finals if m["partition_id"] == self.evaluator_partition]
@@ -335,6 +585,15 @@ class DistributedTrainingDriver(Driver):
                 max_restarts=self.max_restarts,
                 last_seen={str(pid): round(time.time() - ts, 1) for pid, ts in self._last_seen.items()},
             )
+            if self.elastic:
+                view = self.membership
+                base.update(
+                    membership_epoch=view.epoch,
+                    active_slices=list(view.active),
+                    num_slices=view.total_slices,
+                    min_slices=view.min_slices,
+                    membership_mode=view.mode,
+                )
         return base
 
     def _exp_final_callback(self) -> None:
@@ -417,7 +676,8 @@ class DistributedTrainingDriver(Driver):
             if self.abort.is_set():
                 return
             with self.lock:
-                restarting = self._tearing_down or self._charged_epoch == self._restart_epoch
+                restarting = (self._tearing_down or self._relaunching
+                              or self._charged_epoch == self._restart_epoch)
             if restarting or any(t.is_alive() for t in list(self._worker_threads)):
                 grace_deadline = None
                 continue
@@ -444,6 +704,18 @@ class DistributedTrainingDriver(Driver):
                     if now - ts > timeout and pid not in self._final_pids
                 ]
             if not stale:
+                continue
+            if self.elastic and self.membership.mode == "workers":
+                # heartbeat-silent slices leave the membership: the mesh
+                # reshapes around them (a min_slices violation aborts from
+                # digestion), no restart slot is charged, and a later
+                # registration rejoins them
+                for pid in stale:
+                    with self.lock:
+                        self._last_seen.pop(pid, None)
+                    self.telemetry.count("resilience.worker_deaths")
+                    self.server.enqueue({"type": "_SLICE_EVENT", "kind": "drop", "slice": pid, "partition_id": pid,
+                                         "error": f"silent > {timeout:.0f}s"})
                 continue
             with self.lock:
                 budget_left = self.max_restarts - self._restarts

@@ -8,11 +8,18 @@ device, so the mesh is built over an initialised default process group:
 NCCL with one card per rank, or gloo on the CPU. Axes of extent 1 stay in
 the mesh, as in JAX, so ``mesh["fsdp"]`` always names a dimension.
 
-The ``seq``, ``data`` and ``stage`` axes each have a process group of
-their own (:func:`seq_group`, :func:`data_group`, :func:`stage_group`):
-ring and Ulysses attention run over the first, the bucketed and ZeRO-1
-reductions over the second, the pipeline's hand-offs between the
-previous and the next stage (:func:`stage_neighbors`) over the third.
+A sliced mesh (:func:`make_slice_mesh`) puts the ``slice`` axis
+outermost, above the six: a slice is a contiguous block of rank processes
+(:func:`slice_device_groups`), the batch is split over (``slice``,
+``data``, ``fsdp``) and no parameter over ``slice``. An elastic reshape
+leaves the default group (:func:`leave_group`) and builds a new mesh over
+the ranks of the slices still active.
+
+Every axis has a process group of its own (``mesh.get_group(axis)``;
+:func:`seq_group`, :func:`stage_group`): ring and Ulysses attention run
+over ``seq``, the bucketed and ZeRO-1 reductions over ``data`` (then
+``slice``), the pipeline's hand-offs between the previous and the next
+stage (:func:`stage_neighbors`) over ``stage``.
 
 Host-side agreement (:func:`any_rank`, :func:`from_rank0`) runs over a gloo
 twin of the default group (:func:`host_group`), so a flag or a step number
@@ -22,11 +29,20 @@ crosses the ranks without waiting for the card.
 from __future__ import annotations
 
 import threading
-from typing import Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 
-from maggy_tpu_torch.parallel.spec import AXIS_DATA, AXIS_SEQ, AXIS_STAGE, MESH_AXES, ShardingSpec
+from maggy_tpu_torch.parallel.spec import (
+    AXIS_DATA,
+    AXIS_SEQ,
+    AXIS_SLICE,
+    AXIS_STAGE,
+    MESH_AXES,
+    SLICE_MESH_AXES,
+    ShardingSpec,
+    SliceTopology,
+)
 
 _ambient = threading.local()
 # how long a rank waits for its peers at each collective before NCCL or gloo
@@ -36,29 +52,70 @@ PROCESS_GROUP_TIMEOUT_S = 600.0
 _host: tuple = (None, None)
 
 
-def make_mesh(spec: ShardingSpec, device_type: str = "cuda"):
-    """A DeviceMesh for ``spec`` over the default process group, whose size
-    must equal ``spec.num_devices``. ``device_type`` is ``"cuda"`` (each rank
-    on its current card) unless the caller asks for ``"cpu"``."""
+def _world_for_mesh(device_type: str) -> int:
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             "a mesh spans one process per device: initialise torch.distributed "
             "(init_process_group) before make_mesh"
         )
-    world = dist.get_world_size()
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"a mesh lies on cuda or cpu devices, got {device_type!r}")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device_type='cpu' for a mesh of CPU ranks")
+    return dist.get_world_size()
+
+
+def make_mesh(spec: ShardingSpec, device_type: str = "cuda"):
+    """A DeviceMesh for ``spec`` over the default process group, whose size
+    must equal ``spec.num_devices``. ``device_type`` is ``"cuda"`` (each rank
+    on its current card) unless the caller asks for ``"cpu"``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = _world_for_mesh(device_type)
     if spec.num_devices != world:
         raise ValueError(
             f"ShardingSpec covers {spec.num_devices} devices but the process group has "
             f"{world} ranks; use spec.scaled_to({world})."
         )
-    if device_type not in ("cuda", "cpu"):
-        raise ValueError(f"a mesh lies on cuda or cpu devices, got {device_type!r}")
-    if device_type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device_type='cpu' for a mesh of CPU ranks")
     return init_device_mesh(device_type, spec.axis_sizes(), mesh_dim_names=MESH_AXES)
+
+
+def make_slice_mesh(topology: SliceTopology, device_type: str = "cuda"):
+    """A DeviceMesh with the outer ``slice`` axis for ``topology`` over the
+    default process group, whose ranks are the active slices' ranks in
+    slice order (slice 0's block, then slice 1's, ...), as
+    :func:`slice_device_groups` cuts them. An elastic reshape calls it again
+    over the group re-formed from the surviving slices' ranks, with
+    ``topology.with_slices(len(survivors))``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = _world_for_mesh(device_type)
+    if topology.num_devices != world:
+        raise ValueError(
+            f"SliceTopology covers {topology.num_devices} devices "
+            f"({topology.n_slices} slice(s) x {topology.devices_per_slice}) "
+            f"but the process group has {world} ranks"
+        )
+    return init_device_mesh(device_type, topology.axis_sizes(), mesh_dim_names=SLICE_MESH_AXES)
+
+
+def slice_device_groups(n_slices: int, ranks: Sequence) -> List[list]:
+    """``ranks`` (rank processes, or anything listed in slice-major order)
+    cut into ``n_slices`` contiguous slices of equal size. A count that does
+    not split evenly raises: ragged slices would give the slices different
+    layouts across a reshape."""
+    ranks = list(ranks)
+    if n_slices < 1:
+        raise ValueError(f"n_slices must be >= 1, got {n_slices}")
+    if len(ranks) % n_slices != 0:
+        raise ValueError(
+            f"{len(ranks)} ranks do not split into {n_slices} equal "
+            "slices; adjust num_slices or the rank count"
+        )
+    per = len(ranks) // n_slices
+    return [ranks[i * per:(i + 1) * per] for i in range(n_slices)]
 
 
 def mesh_for(num_devices: Optional[int] = None, sharding: Union[str, ShardingSpec] = "fsdp",
@@ -91,16 +148,24 @@ def mesh_shape(mesh) -> dict:
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
+def replica_mesh(mesh):
+    """The one-dimensional mesh of the ranks that hold the same parameters
+    and different rows: ``data``, or on a sliced mesh (``slice``,
+    ``data``) flattened into one dimension (``slice`` outer) when both are
+    above 1; None when neither is."""
+    shape = mesh_shape(mesh)
+    axes = [a for a in (AXIS_SLICE, AXIS_DATA) if shape.get(a, 1) > 1]
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh[axes[0]]
+    return mesh[tuple(axes)]._flatten("replica")
+
+
 def seq_group(mesh):
     """The process group of this rank's ranks along ``seq``: those holding
     the other chunks of its sequence, in chunk order."""
     return mesh.get_group(AXIS_SEQ)
-
-
-def data_group(mesh):
-    """The process group of this rank's ranks along ``data``: the replicas
-    a bucket's gradients are summed over."""
-    return mesh.get_group(AXIS_DATA)
 
 
 def stage_group(mesh):
@@ -138,6 +203,20 @@ def host_group():
             backend="gloo", timeout=datetime.timedelta(seconds=PROCESS_GROUP_TIMEOUT_S))
         _host = (default, twin)
     return _host[1]
+
+
+def leave_group() -> None:
+    """Leave the default process group and every group made from it (the
+    mesh's, the gloo twin), at a step boundary where no collective is in
+    flight, so that the rank can join a group of another size; the ambient
+    mesh goes with them."""
+    import torch.distributed as dist
+
+    global _host
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    _host = (None, None)
+    set_ambient_mesh(None)
 
 
 def any_rank(flag: bool) -> bool:

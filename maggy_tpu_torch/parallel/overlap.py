@@ -319,14 +319,17 @@ class BucketedGrads:
     buffer and drops it; a full bucket starts its collective at once,
     asynchronously: an all-reduce, or with ``shards`` (ZeRO-1) a
     reduce-scatter into this rank's shard. Buckets start in plan order on
-    every rank.
+    every rank. On a sliced mesh ``group`` is ``data`` and ``outer`` the
+    ``slice`` group: each reduced bucket (or shard) is then summed over the
+    slices as well, the cross-slice sum after the intra-slice one, as JAX's
+    step sums over ``data`` first, then over ``slice``.
 
     :meth:`begin` before backward; :meth:`finish` after it waits for every
     bucket (starting any a gradient never reached, with zeros there)."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter], plan: BucketPlan, group, shards: int = 1,
-                 rank: int = 0):
-        self.plan, self.group, self.shards, self.rank = plan, group, shards, rank
+                 rank: int = 0, outer=None):
+        self.plan, self.group, self.shards, self.rank, self.outer = plan, group, shards, rank, outer
         self.params = list(params)
         kinds = [dict(dtype=self.params[b.indices[0]].dtype, device=self.params[b.indices[0]].device)
                  for b in plan.buckets]
@@ -389,6 +392,11 @@ class BucketedGrads:
         self._launch_ready()
         for w in self._work:
             w.wait()
+        if self.outer is not None:
+            import torch.distributed as dist
+
+            for out in self.out:
+                dist.all_reduce(out, group=self.outer)
         return self.out
 
     def grad_views(self) -> List[torch.Tensor]:

@@ -44,24 +44,28 @@ to running the stages in one process.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch.utils import _pytree as pytree
 
-from maggy_tpu_torch.parallel.spec import AXIS_DATA, AXIS_FSDP, AXIS_STAGE
+from maggy_tpu_torch.parallel.sharding import BATCH_AXES
+from maggy_tpu_torch.parallel.spec import AXIS_STAGE
 
 # tags of the two hand-offs between neighbouring stages (gloo matches a
 # receive by sender and tag; NCCL ignores tags)
 ACT_TAG, GRAD_TAG = 0, 1
-# default process groups whose communicator the schedules have brought up
-_warmed: set = set()
+# default process groups whose communicator the schedules have brought up,
+# by id (each held, so that a later group cannot take a dead one's id)
+_warmed: dict = {}
 
 
 class _Topology:
     """This rank's place in the pipeline: the stage count ``S``, its stage
     ``s``, its neighbours' global ranks, and the batch groups
-    (``data``, ``fsdp`` of extent > 1) gradients and losses are summed over."""
+    (``slice``, ``data``, ``fsdp`` of extent > 1) gradients and losses are
+    summed over."""
 
     def __init__(self, mesh, axis_name: str):
         self.mesh = mesh
@@ -73,8 +77,8 @@ class _Topology:
 
         shape = mesh_shape(mesh)
         self.S = shape.get(axis_name, 1)
-        self.batch_groups = [mesh.get_group(a) for a in (AXIS_DATA, AXIS_FSDP) if shape.get(a, 1) > 1]
-        self.dpf = shape.get(AXIS_DATA, 1) * shape.get(AXIS_FSDP, 1)
+        self.batch_groups = [mesh.get_group(a) for a in BATCH_AXES if shape.get(a, 1) > 1]
+        self.dpf = math.prod(shape.get(a, 1) for a in BATCH_AXES)
         if self.S > 1:
             import torch.distributed as dist
 
@@ -96,10 +100,10 @@ class _Topology:
         import torch.distributed as dist
         from torch.distributed import distributed_c10d
 
-        key = id(distributed_c10d._get_default_group())
-        if key not in _warmed:
+        group = distributed_c10d._get_default_group()
+        if id(group) not in _warmed:
             dist.all_reduce(torch.zeros(1, device=device))
-            _warmed.add(key)
+            _warmed[id(group)] = group
 
     def sum_over_batch(self, tensors) -> None:
         """Sum ``tensors`` in place over the batch ranks (a DTensor's local

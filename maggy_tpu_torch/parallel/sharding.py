@@ -17,7 +17,9 @@ rules map them to mesh axes, and :func:`shard_decoder` lays the model out:
   then on the root, over the (``data``, ``fsdp``) sub-mesh: HSDP,
   replicated over ``data`` and sharded over ``fsdp``, when ``dp > 1``;
   on a one-rank mesh too (its ``fsdp`` axis at extent 1), but not under
-  ``tp`` alone.
+  ``tp`` alone. On a sliced mesh the replicas are (``slice``, ``data``)
+  (:func:`slice_rules`: the batch spans the slices, no parameter does):
+  sharded over ``fsdp`` inside a slice, replicated across slices.
   Gradients are reduced as a sum, not FSDP2's mean (see ``Trainer.step``).
 * ``seq`` lays out no parameter: they are replicated over it (as JAX's
   rules replicate them), each ``seq`` rank differentiates its chunk of
@@ -48,7 +50,7 @@ from __future__ import annotations
 import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
-from maggy_tpu_torch.parallel.spec import AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_SEQ, AXIS_TENSOR
+from maggy_tpu_torch.parallel.spec import AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_SEQ, AXIS_SLICE, AXIS_TENSOR
 
 # the JAX package's DEFAULT_RULES: logical name -> mesh axis (or a tuple of
 # mesh axes, or None for replicated); kept to hold PORT_RULES against
@@ -71,6 +73,24 @@ DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
 PORT_RULES: Tuple[Tuple[str, Any], ...] = tuple(
     (name, AXIS_TENSOR if name == "kv" else axis) for name, axis in DEFAULT_RULES
 )
+
+# the mesh axes a batch's rows may be split over, outer to inner
+BATCH_AXES = (AXIS_SLICE, AXIS_DATA, AXIS_FSDP)
+
+
+def slice_rules(rules=DEFAULT_RULES) -> Tuple[Tuple[str, Any], ...]:
+    """The rule table of a sliced mesh (JAX's ``slice_rules``): ``batch``
+    spans the outer ``slice`` axis as well; every other rule is unchanged,
+    so no parameter is sharded over ``slice`` and a reshape re-places the
+    same parameters on fewer or more slices."""
+    out = []
+    for name, axis in rules:
+        if name == "batch":
+            cur = tuple(axis) if isinstance(axis, (tuple, list)) else ((axis,) if axis is not None else ())
+            axis = (AXIS_SLICE,) + cur
+        out.append((name, axis))
+    return tuple(out)
+
 
 # Decoder parameter names (PyTorch's [out, in] layout) -> the logical axes
 # of each dim, the JAX Decoder's names (models/transformer.py: wq/wk/wv
@@ -132,14 +152,9 @@ def check_tensor_parallel(cfg, tp: int) -> None:
         )
 
 
-def _sub_mesh(mesh, axes):
-    names = [a for a in axes if a in mesh.mesh_dim_names]
-    return mesh[names[0]] if len(names) == 1 else mesh[tuple(names)]
-
-
 def batch_group_axes(mesh_shape: Dict[str, int]) -> Tuple[str, ...]:
     """The mesh axes the batch is split over, of extent > 1."""
-    return tuple(a for a in (AXIS_DATA, AXIS_FSDP) if mesh_shape.get(a, 1) > 1)
+    return tuple(a for a in BATCH_AXES if mesh_shape.get(a, 1) > 1)
 
 
 def fsdp_applies(mesh_shape: Dict[str, int]) -> bool:
@@ -175,7 +190,13 @@ def shard_decoder(model, mesh):
     if fsdp_applies(shape):
         from torch.distributed.fsdp import fully_shard
 
-        fsdp_mesh = _sub_mesh(mesh, (AXIS_DATA, AXIS_FSDP) if shape.get(AXIS_DATA, 1) > 1 else (AXIS_FSDP,))
+        from maggy_tpu_torch.parallel.mesh import replica_mesh
+
+        replicas = replica_mesh(mesh)
+        if replicas is None:
+            fsdp_mesh = mesh[AXIS_FSDP]
+        else:  # HSDP: replicated over (slice, data), sharded over fsdp
+            fsdp_mesh = mesh[(replicas.mesh_dim_names[0], AXIS_FSDP)]
         for layer in model.layers:
             fully_shard(layer, mesh=fsdp_mesh)
         fully_shard(model, mesh=fsdp_mesh)

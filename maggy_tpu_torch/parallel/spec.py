@@ -25,7 +25,7 @@ AXIS_FSDP = "fsdp"
 AXIS_TENSOR = "tensor"
 AXIS_SEQ = "seq"
 AXIS_EXPERT = "expert"
-# outermost data axis of a multi-slice mesh (elastic membership, ROADMAP item 7f2)
+# outermost data axis of a multi-slice mesh (elastic membership)
 AXIS_SLICE = "slice"
 
 # the JAX package's mesh axes, in its layout-priority order (outer to inner)
@@ -135,9 +135,10 @@ class ShardingSpec:
 @dataclasses.dataclass(frozen=True)
 class SliceTopology:
     """A multi-slice layout: ``n_slices`` slices, each running
-    ``slice_spec``, under an outer :data:`AXIS_SLICE` data axis. A value
-    class here: the sliced mesh it describes (the elastic reshape) is
-    ROADMAP queue 1 item 7f2."""
+    ``slice_spec``, under an outer :data:`AXIS_SLICE` data axis
+    (:func:`~maggy_tpu_torch.parallel.mesh.make_slice_mesh`). A slice is a
+    contiguous block of ``slice_spec.num_devices`` rank processes; an
+    elastic reshape moves to :meth:`with_slices` of the surviving count."""
 
     n_slices: int = 1
     slice_spec: ShardingSpec = dataclasses.field(default_factory=ShardingSpec)

@@ -15,9 +15,11 @@ and splits each sequence over ``seq`` (ring attention,
 :mod:`maggy_tpu_torch.parallel.overlap`; a ``stage`` axis above 1 trains
 the Decoder in pipeline stages on the 1F1B schedule
 (:mod:`maggy_tpu_torch.parallel.pipeline`,
-:mod:`maggy_tpu_torch.train.pipeline_adapter`). Elastic membership (ROADMAP
-queue 1 item 7f2) and the autopilot (item 9) belong to later slices of the
-port.
+:mod:`maggy_tpu_torch.train.pipeline_adapter`). A sliced context
+(:meth:`TrainContext.create_sliced`) adds the outer ``slice`` axis, and
+``Trainer(membership=)`` checks the elastic membership at each step
+boundary of ``fit``. The autopilot (ROADMAP queue 1 item 9) belongs to a
+later slice of the port.
 
 Where the JAX step is a pure function returning a new state, ``step``
 updates the parameters and optimizer in place and returns the same state
@@ -41,16 +43,18 @@ from torch import nn
 
 from maggy_tpu_torch.parallel import overlap
 from maggy_tpu_torch.parallel import sharding as shd
-from maggy_tpu_torch.parallel.mesh import any_rank, data_group, from_rank0, mesh_shape, seq_group, stage_group
+from maggy_tpu_torch.parallel.mesh import any_rank, from_rank0, host_group, mesh_shape, seq_group, stage_group
 from maggy_tpu_torch.parallel.ringattention import LocalRing, ProcessGroupRing
 from maggy_tpu_torch.parallel.spec import (
     AXIS_DATA,
     AXIS_EXPERT,
     AXIS_FSDP,
     AXIS_SEQ,
+    AXIS_SLICE,
     AXIS_STAGE,
     AXIS_TENSOR,
     ShardingSpec,
+    SliceTopology,
 )
 # JAX keeps the one-time overlap warning in its pipeline adapter; so does
 # the port, and this module re-exports it
@@ -169,11 +173,12 @@ def _split_of(mesh, ring) -> Optional[Tuple[int, int, Any]]:
 
 def shard_rows(batch: Batch, mesh) -> Batch:
     """This rank's rows of a global batch on ``mesh``: the rows split over
-    (``data``, ``fsdp``), ``data`` outer, as JAX's ``batch`` rule places
-    them; ranks that differ only along other axes get the same rows."""
+    (``slice``, ``data``, ``fsdp``), outer first, as JAX's ``batch`` rule
+    places them; ranks that differ only along other axes get the same
+    rows."""
     shape = mesh_shape(mesh)
     index, blocks = 0, 1
-    for axis in (AXIS_DATA, AXIS_FSDP):
+    for axis in shd.BATCH_AXES:
         n = shape.get(axis, 1)
         index = index * n + (mesh.get_local_rank(axis) if n > 1 else 0)
         blocks *= n
@@ -182,7 +187,7 @@ def shard_rows(batch: Batch, mesh) -> Batch:
         rows = value.shape[0]
         if rows % blocks:
             raise ValueError(
-                f"batch[{key!r}] has {rows} rows, which do not split over the {blocks} (data x fsdp) ranks"
+                f"batch[{key!r}] has {rows} rows, which do not split over the {blocks} (slice x data x fsdp) ranks"
             )
         per = rows // blocks
         out[key] = value[index * per:(index + 1) * per]
@@ -351,14 +356,21 @@ class Trainer:
     :func:`~maggy_tpu_torch.parallel.overlap.plan_buckets` buckets), laid
     out over ``tensor`` by the DTensor rules of :mod:`~maggy_tpu_torch.parallel.sharding`, and a masked or packed
     loss is rescaled to the dense global token-weighted mean. ``pp`` with
-    ``sp`` is refused, as JAX's is."""
+    ``sp`` is refused, as JAX's is.
+
+    On a sliced mesh (:meth:`TrainContext.create_sliced`) the batch is
+    split over ``slice`` as well and the gradients are summed across the
+    slices. ``membership`` (a
+    :class:`~maggy_tpu_torch.resilience.membership.MembershipMonitor`) makes
+    ``fit`` check the elastic membership at each step boundary
+    (:meth:`_membership_check`)."""
 
     model: nn.Module
     optimizer: Callable[..., torch.optim.Optimizer]
     device: Any = None
     loss_fn: Callable = lm_loss_fn
     ring: Any = None
-    # elastic membership (a MembershipMonitor) is ROADMAP queue 1 item 7f2
+    # elastic membership: a MembershipMonitor, checked at fit's step boundaries
     membership: Optional[Any] = None
     mesh: Any = None
     zero_stage: int = 0
@@ -368,10 +380,6 @@ class Trainer:
     n_microbatches: Optional[int] = None
 
     def __post_init__(self):
-        if self.membership is not None:
-            raise NotImplementedError(
-                "elastic membership is not ported yet (ROADMAP queue 1 item 7f2)"
-            )
         if self.zero_stage not in (0, 1):
             raise ValueError(f"Trainer.zero_stage must be 0 or 1, got {self.zero_stage!r}")
         if self.bucket_mb is not None and not float(self.bucket_mb) > 0:
@@ -446,10 +454,10 @@ class Trainer:
     @property
     def _dpf(self) -> int:
         shape = self._mesh_shape
-        return shape.get(AXIS_DATA, 1) * shape.get(AXIS_FSDP, 1)
+        return math.prod(shape.get(a, 1) for a in shd.BATCH_AXES)
 
     def _batch_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the batch ranks (``data``, ``fsdp``)."""
+        """``t`` summed over the batch ranks (``slice``, ``data``, ``fsdp``)."""
         import torch.distributed as dist
 
         t = t.clone()
@@ -565,8 +573,8 @@ class Trainer:
         ``("off" | "bucket" | "zero", manual batch axes, zero shard count)``.
 
         ``zero_stage``/``bucket_mb`` request the overlap step, which reduces
-        the gradients over ``data`` itself. It needs a mesh whose only axis
-        above 1 is ``data``: ``fsdp``, ``tensor``, ``seq`` or ``expert``
+        the gradients over ``data`` (then ``slice``) itself. It needs a mesh
+        whose only axes above 1 are ``data`` and ``slice``: ``fsdp``, ``tensor``, ``seq`` or ``expert``
         above 1 (FSDP2 and DTensor lay those out; under fsdp the optimizer
         state is sharded already), or no ``data`` axis to reduce over, warn
         once and stay on the dense path, as JAX's does (a ring trainer
@@ -580,7 +588,7 @@ class Trainer:
             self._overlap_memo = off
             return off
         shape = self._mesh_shape or ({AXIS_SEQ: self.ring.size} if self.ring is not None else {})
-        manual = tuple(a for a in (AXIS_DATA,) if shape.get(a, 1) > 1)
+        manual = tuple(a for a in (AXIS_SLICE, AXIS_DATA) if shape.get(a, 1) > 1)
         blockers = sorted(a for a in (AXIS_FSDP, AXIS_TENSOR, AXIS_SEQ, AXIS_EXPERT) if shape.get(a, 1) > 1)
         mode = off
         if self.pp > 1:
@@ -594,9 +602,17 @@ class Trainer:
                 "step needs a pure data mesh (fsdp already shards optimizer state)"
             )
         elif not manual:
-            warn_overlap_unbucketed("no data mesh axis > 1 to reduce over")
+            warn_overlap_unbucketed("no data/slice mesh axis > 1 to reduce over")
         else:
-            dz = shape[AXIS_DATA] if self.zero_stage > 0 else 1
+            dz = shape.get(AXIS_DATA, 1) if self.zero_stage > 0 else 1
+            if self.zero_stage > 0 and dz == 1:
+                import warnings
+
+                warnings.warn(
+                    "zero_stage=1 needs a data-axis extent > 1; optimizer "
+                    "states stay replicated (effective zero_stage=0)",
+                    stacklevel=3,
+                )
             mode = ("zero" if dz > 1 else "bucket", manual, dz)
         self._overlap_memo = mode
         return mode
@@ -616,9 +632,13 @@ class Trainer:
         leaves = [params[n] for n in names]
         plan = overlap.plan_buckets(leaves, self._bucket_mb_eff(), pad_to=dz)
         telemetry.get().gauge("train.bucket_count", len(plan.buckets))
-        group, rank = data_group(self.mesh), self.mesh.get_local_rank(AXIS_DATA)
+        # reduced over data, then over slice (over slice alone when data is 1)
+        shape = self._mesh_shape
+        inner = AXIS_DATA if shape.get(AXIS_DATA, 1) > 1 else AXIS_SLICE
+        group, rank = self.mesh.get_group(inner), self.mesh.get_local_rank(inner)
+        outer = self.mesh.get_group(AXIS_SLICE) if inner == AXIS_DATA and shape.get(AXIS_SLICE, 1) > 1 else None
         zero = overlap.ZeroShards(leaves, plan, group, dz, rank) if mode == "zero" else None
-        grads = overlap.BucketedGrads(leaves, plan, group, shards=dz, rank=rank)
+        grads = overlap.BucketedGrads(leaves, plan, group, shards=dz, rank=rank, outer=outer)
         layout = overlap.OverlapLayout(mode, plan, names, group, dz, rank, grads, zero)
         self._overlap_layout = layout
         optimizer = self.optimizer(zero.shards if zero is not None else model.parameters())
@@ -1030,6 +1050,60 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _membership_check(self, state: TrainState, step: int, checkpointer, chaos, tel) -> None:
+        """The elastic membership's seam at a step boundary of ``fit``
+        (JAX's ``_membership_check``). Raises one of the membership
+        exceptions when the mesh must reshape; the distributed executor's
+        reshape loop catches it, waits at the driver's barrier, re-forms
+        the group at the new width and re-enters the train_fn, which
+        resumes from the latest complete checkpoint.
+
+        * A **pending epoch** (another member's event, delivered by the
+          heartbeat's ``RESHAPE`` reply) and a chaos **slice_rejoin** are
+          graceful: one synchronous save at the current step first, so no
+          step re-runs.
+        * A chaos **slice_drop** is abrupt: nothing is saved, and the
+          reshaped run falls back to the last periodic checkpoint.
+
+        Under a mesh of several ranks, heartbeat replies reach the ranks at
+        different times: the ranks first agree (one gloo all-reduce of the
+        pending epoch and the chaos outcome, a MAX over the ranks) so that
+        every rank takes the same decision at the same step."""
+        import torch.distributed as dist
+
+        from maggy_tpu_torch.resilience.membership import MembershipChanged, SliceLost, SliceRejoin
+
+        mem = self.membership
+        pending = mem.pending_epoch()
+        dropped = joined = None
+        if pending is None and chaos is not None:
+            # a sliced group runs every active slice, so any may drop here;
+            # a worker-mode process is one slice and only its own loss can
+            # originate locally
+            self_slice = mem.self_slice
+            dropped = chaos.slice_drop(mem.active if self_slice is None else (self_slice,), step=step)
+            if dropped is None and self_slice is None:
+                joined = chaos.slice_rejoin(mem.inactive, step=step)
+        if self.mesh is not None and dist.get_world_size() > 1:
+            seen = torch.tensor([-1 if v is None else int(v) for v in (pending, dropped, joined)])
+            dist.all_reduce(seen, op=dist.ReduceOp.MAX, group=host_group())
+            pending, dropped, joined = (None if v < 0 else v for v in seen.tolist())
+        if pending is not None:
+            event: BaseException = MembershipChanged(pending)
+        elif dropped is not None:
+            raise SliceLost(dropped, step=step)
+        elif joined is not None:
+            event = SliceRejoin(joined, step=step)
+        else:
+            return
+        if checkpointer is not None:
+            # the reshape's convergence point: one synchronous save at the
+            # current step, as the preemption hook takes
+            checkpointer.save(step, state, meta=self.checkpoint_meta())
+            checkpointer.wait()
+            tel.count("resilience.reshape_checkpoints")
+        raise event
+
     def fit(
         self,
         state: TrainState,
@@ -1070,6 +1144,10 @@ class Trainer:
           rank 0's (``resume="auto"`` takes rank 0's latest step), and a
           notice on any rank makes every rank save and return at the same
           step (the flag is reduced over the ranks on the host each step).
+        * With ``membership`` each step boundary first runs
+          :meth:`_membership_check`, which raises when the elastic
+          membership moves (after one synchronous save, unless a slice was
+          lost); a membership counts ``resilience.reshape_checkpoints``.
         * ``prefetch`` (default 2; ``MAGGY_TPU_PREFETCH`` overrides, 0
           disables): batches flow through a
           :class:`~maggy_tpu_torch.train.prefetch.DevicePrefetcher`, which
@@ -1190,6 +1268,11 @@ class Trainer:
         try:
             for i in range(num_steps):
                 wd.beat("train.step", detail=step0 + i)
+                if self.membership is not None:
+                    # a pending epoch or a chaos slice event interrupts the
+                    # loop at this step boundary; the graceful ones save the
+                    # current step first, so no step re-runs
+                    self._membership_check(state, step0 + i, checkpointer, chaos, tel)
                 if chaos is not None:
                     # deterministic fault injection: a matching kill rule
                     # raises WorkerLost here
@@ -1294,6 +1377,38 @@ def _export_trace(profiler, profile_dir: str) -> str:
     return path
 
 
+def _group_size(who: str) -> int:
+    import torch.distributed as dist
+
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"{who} needs an initialised torch.distributed process "
+            "group; use TrainContext.local for a ring inside one process"
+        )
+    return dist.get_world_size()
+
+
+def _resolve_spec(spec_or_preset: Union[ShardingSpec, str], size: int) -> ShardingSpec:
+    """A preset resolved against ``size`` ranks, or a spec scaled to them."""
+    if isinstance(spec_or_preset, str):
+        return ShardingSpec.preset(spec_or_preset, size)
+    return spec_or_preset if spec_or_preset.num_devices == size else spec_or_preset.scaled_to(size)
+
+
+def _rank_device(devices, device) -> torch.device:
+    """This rank's device, made current on a card: ``devices[0]`` (the
+    rank's lease), else ``device``, else ``cuda:LOCAL_RANK``, else the
+    current card."""
+    if devices:
+        device = devices[0]
+    if device is None and "LOCAL_RANK" in os.environ:  # else resolve_device takes the current card
+        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device
+
+
 def _require_ring(spec: ShardingSpec) -> None:
     if spec.sp < 2:
         raise ValueError(
@@ -1323,7 +1438,12 @@ class TrainContext:
     ``ctx.ring``) or ``make_ulysses_attention(ctx.mesh)``. A spec of
     ``sp`` alone trains over the ring without a mesh (parameters
     replicated, no FSDP2); with any other axis above 1 the trainer lays the model out on
-    the mesh and splits each row's sequence over ``seq``."""
+    the mesh and splits each row's sequence over ``seq``.
+
+    ``create_sliced`` builds a sliced mesh (the outer ``slice`` axis,
+    ``topology``) over the ranks of the active slices; ``membership`` is the
+    rank's :class:`~maggy_tpu_torch.resilience.membership.MembershipMonitor`
+    under elastic membership, which the context's trainers check."""
 
     spec: ShardingSpec
     ring: Any
@@ -1336,10 +1456,14 @@ class TrainContext:
     # training group (its own one-rank group) and should evaluate
     # checkpoints instead of training
     role: str = "worker"
+    # elastic membership: the rank's MembershipMonitor and, for a sliced
+    # mesh, the SliceTopology it was built for
+    membership: Any = None
+    topology: Optional[SliceTopology] = None
 
     @classmethod
     def create(cls, spec_or_preset: Union[ShardingSpec, str] = "fsdp", devices=None, role: str = "worker", *,
-               device=None) -> "TrainContext":
+               device=None, membership=None) -> "TrainContext":
         """A context over the default process group, whose size the spec
         is scaled to (a preset is resolved against it): a DeviceMesh
         (:func:`~maggy_tpu_torch.parallel.mesh.make_mesh`) and, when
@@ -1351,29 +1475,48 @@ class TrainContext:
 
         from maggy_tpu_torch.parallel.mesh import make_mesh, set_ambient_mesh
 
-        if not dist.is_available() or not dist.is_initialized():
-            raise RuntimeError(
-                "TrainContext.create needs an initialised torch.distributed process "
-                "group; use TrainContext.local for a ring inside one process"
-            )
-        size = dist.get_world_size()
-        spec = spec_or_preset
-        if isinstance(spec, str):
-            spec = ShardingSpec.preset(spec, size)
-        elif spec.num_devices != size:
-            spec = spec.scaled_to(size)
-        if devices:
-            device = devices[0]
-        if device is None and "LOCAL_RANK" in os.environ:  # else resolve_device takes the current card
-            device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
-        device = resolve_device(device)
-        common = dict(process_index=dist.get_rank(), num_processes=size, role=role)
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
+        size = _group_size("TrainContext.create")
+        spec = _resolve_spec(spec_or_preset, size)
+        device = _rank_device(devices, device)
         mesh = make_mesh(spec, device.type)
         set_ambient_mesh(mesh)
         ring = ProcessGroupRing.over_mesh(mesh) if spec.sp > 1 else None
-        return cls(spec, ring, device, mesh=mesh, **common)
+        return cls(spec, ring, device, mesh=mesh, process_index=dist.get_rank(), num_processes=size, role=role,
+                   membership=membership)
+
+    @classmethod
+    def create_sliced(cls, spec_or_preset: Union[ShardingSpec, str] = "fsdp", total_slices: int = 1, active=None,
+                      devices=None, role: str = "worker", *, device=None, membership=None) -> "TrainContext":
+        """A context over a sliced mesh (JAX's ``create_sliced``): the
+        launch's ranks split into ``total_slices`` contiguous slices, and
+        the default process group holds the ranks of the ``active`` ones
+        (default: all), in slice order. Each slice runs ``spec_or_preset``
+        (resolved against the ranks of one slice) under the outer ``slice``
+        axis: the batch is split over (``slice``, ``data``, ``fsdp``)
+        (:func:`~maggy_tpu_torch.parallel.sharding.slice_rules`), no
+        parameter over ``slice``, so the gradients are reduced inside a
+        slice, then summed across the slices. An elastic reshape re-forms
+        the group over the surviving slices' ranks and calls this again
+        with the surviving ``active`` set."""
+        import torch.distributed as dist
+
+        from maggy_tpu_torch.parallel.mesh import make_slice_mesh, set_ambient_mesh, slice_device_groups
+
+        size = _group_size("TrainContext.create_sliced")
+        active = tuple(sorted(range(total_slices) if active is None else active))
+        if not active:
+            raise ValueError("create_sliced needs at least one active slice")
+        if any(not 0 <= s < total_slices for s in active):
+            raise ValueError(f"active slices {list(active)} lie outside the {total_slices} of the launch")
+        slice_device_groups(len(active), range(size))  # raises unless the ranks split evenly
+        spec = _resolve_spec(spec_or_preset, size // len(active))
+        device = _rank_device(devices, device)
+        topology = SliceTopology(n_slices=len(active), slice_spec=spec)
+        mesh = make_slice_mesh(topology, device.type)
+        set_ambient_mesh(mesh)
+        ring = ProcessGroupRing.over_mesh(mesh) if spec.sp > 1 else None
+        return cls(spec, ring, device, mesh=mesh, process_index=dist.get_rank(), num_processes=size, role=role,
+                   membership=membership, topology=topology)
 
     @classmethod
     def local(cls, spec: ShardingSpec, device=None) -> "TrainContext":
@@ -1386,7 +1529,8 @@ class TrainContext:
         """The mesh the trainer lays the model out on: none for a ring
         alone (``sp`` the only axis above 1), which trains over its
         :class:`ProcessGroupRing` with the parameters replicated."""
-        if self.mesh is None or (self.spec.sp > 1 and self.spec.num_devices == self.spec.sp):
+        if self.mesh is None or (self.topology is None and self.spec.sp > 1
+                                 and self.spec.num_devices == self.spec.sp):
             return None
         return self.mesh
 
@@ -1403,7 +1547,7 @@ class TrainContext:
             bucket_mb = self.spec.bucket_mb
         return Trainer(model, optimizer, device=self.device, loss_fn=loss_fn, ring=self.ring,
                        mesh=self._trainer_mesh, zero_stage=int(zero_stage), bucket_mb=bucket_mb,
-                       n_microbatches=n_microbatches)
+                       n_microbatches=n_microbatches, membership=self.membership)
 
     def shard_batch(self, global_batch: Batch) -> Batch:
         """Every rank passes the same global batch and gets its own part:
@@ -1421,8 +1565,8 @@ class TrainContext:
 
     def shard(self, tree: Batch, logical_axes=("batch",)) -> Dict[str, torch.Tensor]:
         """This rank's part of a host batch on its device: rows split over
-        (``data``, ``fsdp``) as the ``batch`` rule places them; only that
-        rule is ported."""
+        (``slice``, ``data``, ``fsdp``) as the ``batch`` rule places them;
+        only that rule is ported."""
         if tuple(logical_axes) != ("batch",):
             raise NotImplementedError(f"TrainContext.shard places the 'batch' rule only, got {logical_axes}")
         if self.mesh is None:

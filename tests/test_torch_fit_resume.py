@@ -234,8 +234,18 @@ def test_autopilot_and_membership_raise_naming_their_items(jax_weights):
     trainer, state = _port(params)
     with pytest.raises(NotImplementedError, match="item 9"):
         trainer.fit(state, batch_iterator(_arrays(), B, seed=1), 2, autopilot=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(Decoder(DecoderConfig.tiny(), device="meta"), adamw(LR), device="cpu", membership=object())
+    # elastic membership is ported: the trainer keeps its monitor, and a
+    # pending epoch stops fit at its first step boundary
+    from maggy_tpu_torch.resilience.membership import MembershipChanged, MembershipMonitor, MembershipView
+
+    monitor = MembershipMonitor(MembershipView.full(2))
+    member = Trainer(Decoder(DecoderConfig.tiny(), device="meta"), adamw(LR), device="cpu", membership=monitor)
+    assert member.membership is monitor
+    monitor.signal(1)
+    trainer.membership = monitor
+    with pytest.raises(MembershipChanged, match="epoch 1"):
+        trainer.fit(state, batch_iterator(_arrays(), B, seed=1), 2)
+    trainer.membership = None
     with pytest.raises(ValueError, match="requires a checkpointer"):
         trainer.fit(state, batch_iterator(_arrays(), B, seed=1), 2, resume="auto")
 

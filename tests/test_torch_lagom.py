@@ -348,16 +348,19 @@ def test_device_groups():
 @pytest.mark.parametrize(
     "make, match",
     [
-        # what of the distributed kind the port lacks (elastic membership,
-        # item 7f2), refused by name; pod mode itself is ported
-        # (tests/test_torch_pod*.py), but not a multi-slice pod mesh
-        (lambda: DistributedConfig(device="cpu", elastic=True), "item 7f2"),
-        (lambda: DistributedConfig(device="cpu", driver_addr="localhost:1", num_slices=2), "item 7f2"),
+        # elastic membership is ported (tests/test_torch_elastic.py): what
+        # the JAX package refuses, the port refuses with JAX's own errors,
+        # before any rank starts: a floor above the launch width, and a
+        # pod of one rank cut into two slices (JAX's "do not split")
+        (lambda: DistributedConfig(device="cpu", elastic=True, min_slices=2),
+         r"min_slices=2 exceeds the launch width \(1 slice\(s\)\)"),
+        (lambda: DistributedConfig(device="cpu", driver_addr="localhost:1", elastic=True, num_slices=2),
+         "1 ranks do not split into 2 equal slices"),
     ],
     ids=["distributed", "pod-driver-addr"],
 )
 def test_unported_experiment_kinds_raise(port_env, make, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         _lagom(lambda hparams: 1.0, make())
 
 

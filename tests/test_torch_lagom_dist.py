@@ -27,7 +27,8 @@ process per rank on the CPU, against the JAX Trainer.
   (the bucketed step) run through ``lagom``: each rank's trainer resolves
   that mode from the spec the config stamps, and the final loss equals the
   JAX Trainer's dense step under ``ShardingSpec(dp=2)`` within 2e-5.
-* ``elastic=True`` raises, naming its ROADMAP item; the JAX package's
+* ``elastic=True`` with ``min_slices`` above the launch width raises the
+  JAX driver's error before any rank starts; the JAX package's
   ``DistributedConfig`` is no port config and raises ``TypeError`` naming
   the port's.
 
@@ -37,7 +38,6 @@ Every ``lagom`` call runs on a thread, waited for under ``TIMEOUT_S``.
 import json
 import multiprocessing
 import os
-import threading
 import time
 from pathlib import Path
 
@@ -45,7 +45,6 @@ import numpy as np
 import pytest
 import torch
 
-from maggy_tpu_torch import experiment
 from maggy_tpu_torch.config import DistributedConfig
 from maggy_tpu_torch.models import Decoder, DecoderConfig
 from maggy_tpu_torch.train import adamw
@@ -67,21 +66,15 @@ def port_env(tmp_path):
 
 
 def _lagom(train_fn, config):
-    out = {}
+    """``lagom`` on a thread, waited for under ``TIMEOUT_S``; a run that
+    outlives the wait is aborted, its ranks reaped, before the test fails."""
+    from test_torch_pod import DriverThread
 
-    def run():
-        try:
-            out["result"] = experiment.lagom(train_fn, config)
-        except BaseException as e:  # noqa: BLE001 - re-raised in the test's thread
-            out["error"] = e
-
-    t = threading.Thread(target=run, daemon=True)
-    t.start()
-    t.join(TIMEOUT_S)
-    assert not t.is_alive(), f"lagom did not return within {TIMEOUT_S} s"
-    if "error" in out:
-        raise out["error"]
-    return out["result"]
+    run = DriverThread(train_fn, config)
+    try:
+        return run.join(TIMEOUT_S)
+    finally:
+        run.stop()
 
 
 def packed_batches(vocab: int, n: int, seed: int = 0):
@@ -288,12 +281,15 @@ def test_zero_options_run_through_lagom(port_env, kw, mode, zero):
     assert _rank_children() == []
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(elastic=True), "7f2"),
+@pytest.mark.parametrize("kw, error, match", [
+    # elastic membership is ported (tests/test_torch_elastic.py): a floor
+    # above the launch width raises the JAX driver's own error
+    (dict(elastic=True, min_slices=3), ValueError, r"min_slices=3 exceeds the launch width \(2 slice\(s\)\)"),
 ], ids=["elastic"])
-def test_unported_options_raise_naming_their_items(port_env, kw, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\b"):
+def test_unported_options_raise_naming_their_items(port_env, kw, error, match):
+    with pytest.raises(error, match=match):
         _lagom(fsdp_train, DistributedConfig(device="cpu", num_executors=2, **kw))
+    assert _rank_children() == []
 
 
 def test_preemption_on_one_rank_saves_and_resumes_every_rank(port_env):

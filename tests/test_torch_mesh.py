@@ -223,7 +223,7 @@ def _trainer_zero_stage_1():
     pipeline_adapter._overlap_fallback_warned = False  # the one-time warning, fresh
     tr = TrainContext(ShardingSpec(), None, torch.device("cpu")).trainer(
         Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), zero_stage=1)
-    with pytest.warns(UserWarning, match="no data mesh axis"):  # one device: nothing to shard over, as in JAX
+    with pytest.warns(UserWarning, match="no data/slice mesh axis"):  # one device: nothing to shard over, as in JAX
         mode = tr._overlap_mode()
     return (tr.zero_stage, mode), (1, ("off", (), 1))
 
@@ -238,8 +238,17 @@ def _dist_config(**kw):
     return {k: got[k] for k in want}, want
 
 
-# what raised naming items 7a2, 7c, 7e and 7f until they were ported: each
-# builds now, as the JAX package's does
+def _trainer_membership():
+    """``Trainer(membership=)`` keeps the monitor, as JAX's does."""
+    from maggy_tpu_torch.resilience.membership import MembershipMonitor, MembershipView
+
+    monitor = MembershipMonitor(MembershipView.full(2))
+    trainer = Trainer(Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), device="cpu", membership=monitor)
+    return trainer.membership, monitor
+
+
+# what raised naming items 7a2, 7c, 7e, 7f and 7f2 until they were ported:
+# each builds now, as the JAX package's does
 @pytest.mark.parametrize("make", [
     lambda: (ShardingSpec(sp=2, fsdp=2).axis_sizes(), JShardingSpec(sp=2, fsdp=2).axis_sizes()),
     lambda: (ShardingSpec(sp=2, tp=2).axis_sizes(), JShardingSpec(sp=2, tp=2).axis_sizes()),
@@ -260,9 +269,14 @@ def _dist_config(**kw):
     lambda: _dist_config(evaluator=True, num_executors=2, data_plane="local"),
     lambda: _dist_config(driver_addr="localhost:1"),
     lambda: _dist_config(data_plane="local"),
+    lambda: _dist_config(elastic=True),
+    lambda: _dist_config(elastic=True, num_slices=2),
+    lambda: _dist_config(elastic=True, min_slices=2),
+    _trainer_membership,
 ], ids=["sp2_fsdp2", "sp2_tp2", "zero_stage", "bucket_mb", "zero_lvl_1", "config_zero_stage",
         "config_bucket_mb", "trainer_zero_stage", "pp2", "pp_preset", "trainer_n_microbatches",
-        "max_restarts", "evaluator", "driver_addr", "data_plane_local"])
+        "max_restarts", "evaluator", "driver_addr", "data_plane_local", "elastic", "num_slices",
+        "min_slices", "trainer_membership"])
 def test_ported_parts_build(make):
     got, want = make()
     assert got == want
@@ -271,11 +285,6 @@ def test_ported_parts_build(make):
 @pytest.mark.parametrize("make, item", [
     (lambda: ShardingSpec(ep=2), "8"),
     (lambda: ShardingSpec.preset("ep", 4), "8"),
-    (lambda: DistributedConfig(elastic=True, device="cpu"), "7f2"),
-    (lambda: DistributedConfig(num_slices=2, device="cpu"), "7f2"),
-    (lambda: DistributedConfig(min_slices=2, device="cpu"), "7f2"),
-    (lambda: Trainer(Decoder(DecoderConfig.tiny(), device="meta"), adamw(1e-3), device="cpu",
-                     membership=object()), "7f2"),
 ], ids=lambda v: v if isinstance(v, str) else "")
 def test_unported_parts_raise_naming_their_items(make, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\b"):

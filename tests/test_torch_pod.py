@@ -25,7 +25,11 @@ CPU with gloo ranks.
   the same train_fn, key for key.
 
 Every subprocess and ``lagom`` wait is under its own timeout of 120 s or
-less.
+less. A test that talks to its driver runs ``lagom`` on a
+:class:`DriverThread`, which waits for that run's own driver (never one a
+previous test left behind) and is stopped at the test's end whatever its
+outcome (``driver_threads``): the driver aborted, its thread joined, its
+rank processes reaped.
 """
 
 import inspect
@@ -65,22 +69,79 @@ def port_env(tmp_path, monkeypatch):
     env_mod.set_instance(None)
 
 
-def _lagom(train_fn, config):
-    out = {}
+class DriverThread:
+    """``experiment.lagom(train_fn, config)`` on a daemon thread."""
 
-    def run():
+    def __init__(self, train_fn, config):
+        self.out = {}
+        self.driver = None
+        self._previous = experiment.CURRENT_DRIVER
+        self.thread = threading.Thread(target=self._run, args=(train_fn, config), daemon=True)
+        self.thread.start()
+
+    def _run(self, train_fn, config):
         try:
-            out["result"] = experiment.lagom(train_fn, config)
+            self.out["result"] = experiment.lagom(train_fn, config)
         except BaseException as e:  # noqa: BLE001 - re-raised in the test's thread
-            out["error"] = e
+            self.out["error"] = e
 
-    t = threading.Thread(target=run, daemon=True)
-    t.start()
-    t.join(TIMEOUT_S)
-    assert not t.is_alive(), f"lagom did not return within {TIMEOUT_S} s"
-    if "error" in out:
-        raise out["error"]
-    return out["result"]
+    def await_driver(self, timeout: float = 60.0):
+        """This run's driver once its server listens: a driver that is not
+        the one current before the thread started. Raises the run's error
+        if it ended first."""
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            driver = experiment.CURRENT_DRIVER
+            if (driver is not None and driver is not self._previous and driver.server is not None
+                    and driver.server.port):
+                self.driver = driver
+                return driver
+            if not self.thread.is_alive():
+                raise AssertionError(f"lagom ended before its driver listened: {self.out.get('error')!r}")
+            time.sleep(0.05)
+        raise AssertionError(f"this run's driver did not listen within {timeout} s")
+
+    def join(self, timeout: float = TIMEOUT_S):
+        """The run's result (its error raised), once ``lagom`` returned."""
+        self.thread.join(timeout)
+        assert not self.thread.is_alive(), f"lagom did not return within {timeout} s"
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out["result"]
+
+    def stop(self) -> None:
+        """Abort the run if it still runs (its driver reaps the ranks it
+        spawned) and join its thread."""
+        if not self.thread.is_alive():
+            return
+        driver = self.driver or experiment.CURRENT_DRIVER
+        if driver is not None:
+            driver.abort.set()
+            driver.experiment_done.set()
+        self.thread.join(60)
+
+
+@pytest.fixture()
+def driver_threads():
+    """Start ``DriverThread``s; every one still running at the test's end
+    is stopped, so no driver outlives its test."""
+    started = []
+
+    def start(train_fn, config):
+        started.append(DriverThread(train_fn, config))
+        return started[-1]
+
+    yield start
+    for run in started:
+        run.stop()
+
+
+def _lagom(train_fn, config):
+    run = DriverThread(train_fn, config)
+    try:
+        return run.join()
+    finally:
+        run.stop()
 
 
 def _child_env(**extra):
@@ -263,27 +324,11 @@ def pod_metric_train(hparams, reporter, ctx):
     return {"metric": float(hparams["base"]) + 1.0, "role": 1.0 if ctx.role == "worker" else 0.0}
 
 
-def test_pod_two_process_training(port_env, tmp_path):
-    holder = {}
+def test_pod_two_process_training(port_env, tmp_path, driver_threads):
     config = DistributedConfig(hparams={"base": 10.0}, num_executors=2, sharding="dp", data_plane="local",
                                driver_addr="127.0.0.1:auto", hb_interval=0.05, device="cpu")
-
-    def run_driver():
-        try:
-            holder["result"] = experiment.lagom(pod_metric_train, config)
-        except BaseException as e:  # noqa: BLE001 - surfaced by the test
-            holder["error"] = e
-
-    t = threading.Thread(target=run_driver, daemon=True)
-    t.start()
-    deadline = time.time() + 30
-    driver = None
-    while time.time() < deadline:
-        driver = experiment.CURRENT_DRIVER
-        if driver is not None and driver.server is not None and driver.server.port:
-            break
-        time.sleep(0.05)
-    assert driver is not None and driver.server is not None, "driver never started"
+    run = driver_threads(pod_metric_train, config)
+    driver = run.await_driver()
     assert driver.pod_mode
     # the pod driver's registry record is cross-host: scope "pod", its host name
     rec = port_env.lookup_driver(driver.app_id)
@@ -298,10 +343,7 @@ def test_pod_two_process_training(port_env, tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "WORKER-DONE" in proc.stdout and "'role': 'worker'" in proc.stdout
-    t.join(timeout=60)
-    assert not t.is_alive(), "driver did not finish"
-    assert "error" not in holder, holder.get("error")
-    result = holder["result"]
+    result = run.join(60)
     assert result["num_workers"] == 2
     assert result["metric"] == pytest.approx(11.0)  # both workers returned 11.0, as in JAX
     assert result["role"] == pytest.approx(0.5)  # partition 0 the chief, partition 1 a worker

@@ -17,7 +17,11 @@ with tiny trials.
   that dies is respawned into the live study, which completes.
 
 Every subprocess and ``lagom`` wait is under its own timeout of 120 s or
-less.
+less. Each test waits for its own driver (``DriverThread``) and, pass or
+fail, stops it and kills the worker processes it spawned. A study whose
+worker must hold a trial keeps the driver's own executor on its first
+trial until the worker has taken one: a worker that imports torch on a
+loaded host can otherwise find the study already finished.
 """
 
 import os
@@ -29,8 +33,14 @@ import time
 
 import pytest
 
-from test_torch_pod import REPO, TIMEOUT_S, _child_env, port_env  # noqa: F401 - port_env is a fixture
-from maggy_tpu_torch import Searchspace, experiment
+from test_torch_pod import (  # noqa: F401 - port_env and driver_threads are fixtures
+    REPO,
+    TIMEOUT_S,
+    _child_env,
+    driver_threads,
+    port_env,
+)
+from maggy_tpu_torch import Searchspace
 from maggy_tpu_torch.config import DistributedConfig, HyperparameterOptConfig
 
 HPO_WORKER_SCRIPT = textwrap.dedent(
@@ -57,8 +67,42 @@ HPO_WORKER_SCRIPT = textwrap.dedent(
 )
 
 
-def _start_driver(holder, worker_timeout=600.0, trial_s=0.3, num_trials=30):
+# a worker's wait to hold its first trial, and the driver executor's wait
+# for it: a worker process imports torch, seconds on a loaded host
+WORKER_START_S = 90.0
+
+
+@pytest.fixture()
+def workers():
+    """Spawn worker processes; every one still running at the test's end is
+    killed, and the driver's executor held for a worker is released."""
+    procs, released = [], threading.Event()
+
+    def spawn(script, env):
+        procs.append(subprocess.Popen([sys.executable, str(script)], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+        return procs[-1]
+
+    spawn.released = released
+    yield spawn
+    released.set()
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate(timeout=30)
+
+
+def _start_driver(driver_threads, worker_timeout=600.0, trial_s=0.3, num_trials=30, hold_for=None):
+    """A pod-mode HPO driver on its thread and its driver, once it listens.
+    With ``hold_for`` (a marker path and an event), the driver's own
+    executor waits in its first trial until the worker created the marker
+    (or the event is set)."""
     def train(hparams, reporter):
+        if hold_for is not None:
+            marker, released = hold_for
+            deadline = time.time() + WORKER_START_S
+            while not marker.exists() and not released.is_set() and time.time() < deadline:
+                time.sleep(0.05)
         reporter.broadcast(float(hparams["x"]), step=0)
         time.sleep(trial_s)
         return {"metric": float(hparams["x"])}
@@ -68,29 +112,10 @@ def _start_driver(holder, worker_timeout=600.0, trial_s=0.3, num_trials=30):
         direction="max", es_policy="none", num_executors=2, hb_interval=0.05,
         driver_addr="127.0.0.1:auto",  # placeholder: flags pod mode
         worker_timeout=worker_timeout, device="cpu")
-
-    def run_driver():
-        try:
-            holder["result"] = experiment.lagom(train, config)
-        except BaseException as e:  # noqa: BLE001 - surfaced by the test
-            holder["error"] = e
-
-    t = threading.Thread(target=run_driver, daemon=True)
-    t.start()
-    return t, _await_driver()
-
-
-def _await_driver():
-    deadline = time.time() + 30
-    driver = None
-    while time.time() < deadline:
-        driver = experiment.CURRENT_DRIVER
-        if driver is not None and driver.server is not None and driver.server.port:
-            break
-        time.sleep(0.05)
-    assert driver is not None and driver.server is not None, "driver never started"
+    run = driver_threads(train, config)
+    driver = run.await_driver()
     assert driver.pod_mode
-    return driver
+    return run, driver
 
 
 def _worker_env(driver, tmp_path, **extra):
@@ -99,13 +124,8 @@ def _worker_env(driver, tmp_path, **extra):
                       MAGGY_TPU_LOG_ROOT=tmp_path / "worker_logs", MT_MARKER=tmp_path / "marker", **extra)
 
 
-def _spawn(script, env):
-    return subprocess.Popen([sys.executable, str(script)], env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-
-
 def _await_marker(tmp_path, proc):
-    deadline = time.time() + 60
+    deadline = time.time() + WORKER_START_S
     while not (tmp_path / "marker").exists():
         assert proc.poll() is None, proc.stdout.read()[-2000:]
         assert time.time() < deadline, "the worker never held a trial"
@@ -117,60 +137,52 @@ def _kill(proc):
     proc.communicate(timeout=30)
 
 
-def test_pod_hpo_worker_kill_and_respawn_completes_all_trials(port_env, tmp_path):
-    holder = {}
-    t, driver = _start_driver(holder, trial_s=0.4, num_trials=40)
+def test_pod_hpo_worker_kill_and_respawn_completes_all_trials(port_env, tmp_path, driver_threads, workers):
+    run, driver = _start_driver(driver_threads, trial_s=0.4, num_trials=40,
+                                hold_for=(tmp_path / "marker", workers.released))
     script = tmp_path / "worker.py"
     script.write_text(HPO_WORKER_SCRIPT.format(trial_s=0.4))
-    victim = _spawn(script, _worker_env(driver, tmp_path))
+    victim = workers(script, _worker_env(driver, tmp_path))
     _await_marker(tmp_path, victim)  # the victim dies holding a trial
     _kill(victim)
-    replacement = _spawn(script, _worker_env(driver, tmp_path))
+    replacement = workers(script, _worker_env(driver, tmp_path))
     out, _ = replacement.communicate(timeout=TIMEOUT_S)
     assert replacement.returncode == 0, out[-2000:]
     assert "'role': 'trial_worker'" in out
-    t.join(timeout=TIMEOUT_S)
-    assert not t.is_alive(), "driver did not finish"
-    assert "error" not in holder, holder.get("error")
-    result = holder["result"]
+    result = run.join()
     # the full count despite the kill; the lost trial was requeued, not failed
     assert result["num_trials"] == 40
     assert result.get("errors", 0) == 0
     assert result["best"] is not None
 
 
-def test_pod_hpo_dead_worker_liveness_frees_trial_and_completes(port_env, tmp_path):
-    holder = {}
-    t, driver = _start_driver(holder, worker_timeout=2.0, trial_s=0.3, num_trials=20)
+def test_pod_hpo_dead_worker_liveness_frees_trial_and_completes(port_env, tmp_path, driver_threads, workers):
+    run, driver = _start_driver(driver_threads, worker_timeout=2.0, trial_s=0.3, num_trials=20,
+                                hold_for=(tmp_path / "marker", workers.released))
     script = tmp_path / "worker.py"
     script.write_text(HPO_WORKER_SCRIPT.format(trial_s=0.3))
-    victim = _spawn(script, _worker_env(driver, tmp_path))
+    victim = workers(script, _worker_env(driver, tmp_path))
     _await_marker(tmp_path, victim)
     _kill(victim)
-    t.join(timeout=TIMEOUT_S)
-    assert not t.is_alive(), "driver hung after worker death"
-    assert "error" not in holder, holder.get("error")
-    result = holder["result"]
+    result = run.join()
     assert result["num_trials"] == 20
     assert result.get("errors", 0) == 0
 
 
-def test_pod_worker_device_lease(port_env, tmp_path):
-    holder = {}
-    t, driver = _start_driver(holder, trial_s=0.4, num_trials=30)
+def test_pod_worker_device_lease(port_env, tmp_path, driver_threads, workers):
+    run, driver = _start_driver(driver_threads, trial_s=0.4, num_trials=30,
+                                hold_for=(tmp_path / "marker", workers.released))
     script = tmp_path / "worker.py"
     script.write_text(HPO_WORKER_SCRIPT.format(trial_s=0.1))
     bad_env = _worker_env(driver, tmp_path, MAGGY_TPU_WORKER_DEVICES="1,1")
-    worker = _spawn(script, _worker_env(driver, tmp_path, MAGGY_TPU_WORKER_DEVICES="1,2"))
+    worker = workers(script, _worker_env(driver, tmp_path, MAGGY_TPU_WORKER_DEVICES="1,2"))
     out, _ = worker.communicate(timeout=TIMEOUT_S)
     assert worker.returncode == 0, out[-2000:]
     served = int(out.split(" served ")[1].split()[0])
     assert served > 0, out[-1500:]
     assert "lease [device(type='cpu')]" in out  # the lease, resolved once registered
-    t.join(timeout=TIMEOUT_S)
-    assert "error" not in holder, holder.get("error")
-    assert holder["result"]["num_trials"] == 30
-    bad = _spawn(script, bad_env)
+    assert run.join()["num_trials"] == 30
+    bad = workers(script, bad_env)
     out, _ = bad.communicate(timeout=TIMEOUT_S)
     assert bad.returncode != 0 and "must name distinct" in out  # checked before it registers
 
@@ -180,30 +192,21 @@ def silent_train(hparams, reporter, ctx):
     return {"metric": 1.0}
 
 
-def test_silent_pod_worker_aborts(port_env):
+def test_silent_pod_worker_aborts(port_env, driver_threads):
     from maggy_tpu_torch.core import rpc
 
     config = DistributedConfig(hparams={}, num_executors=2, sharding="dp", data_plane="local",
                                driver_addr="127.0.0.1:1",  # pod mode marker (the driver never dials it)
                                worker_timeout=2.0, hb_interval=0.05, device="cpu")
-    holder = {}
-
-    def run():
-        try:
-            experiment.lagom(silent_train, config)
-        except BaseException as e:  # noqa: BLE001
-            holder["error"] = e
-
-    t = threading.Thread(target=run, daemon=True)
-    t.start()
-    driver = _await_driver()
+    run = driver_threads(silent_train, config)
+    driver = run.await_driver()
+    assert driver.pod_mode
     # impersonate remote partition 1: register once, then go silent
     ghost = rpc.Client(("127.0.0.1", driver.server.port), 1, driver.server.secret, hb_interval=0.05)
     ghost.register({"host": "preempted-host"})
     ghost.stop()
-    t.join(timeout=60)
-    assert not t.is_alive(), "driver hung on the silent worker"
-    assert "silent" in str(holder.get("error"))
+    with pytest.raises(RuntimeError, match="silent"):
+        run.join(60)
 
 
 ABLATION_SCRIPT = """
@@ -221,7 +224,7 @@ def ablation_train(model, reporter, devices, ablated_component):
         open(os.environ["MT_MARKER"], "a").close()
     elif not os.path.exists(os.environ["MT_MARKER"]):
         # the driver's executor holds its first trial until the worker has run one
-        deadline = time.time() + 60
+        deadline = time.time() + 90
         while not os.path.exists(os.environ["MT_MARKER"]) and time.time() < deadline:
             time.sleep(0.05)
     n = float(sum(p.numel() for p in model.parameters()))
@@ -245,7 +248,7 @@ if __name__ == "__main__":
 """
 
 
-def test_pod_ablation_worker_rebuilds_the_resolver(port_env, tmp_path, monkeypatch):
+def test_pod_ablation_worker_rebuilds_the_resolver(port_env, tmp_path, monkeypatch, driver_threads):
     import importlib.util
 
     path = tmp_path / "ablation_script.py"
@@ -254,17 +257,9 @@ def test_pod_ablation_worker_rebuilds_the_resolver(port_env, tmp_path, monkeypat
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     monkeypatch.setenv("MT_MARKER", str(tmp_path / "marker"))
-    holder = {}
-
-    def run_driver():
-        try:
-            holder["result"] = experiment.lagom(mod.ablation_train, mod.config(driver_addr="127.0.0.1:auto"))
-        except BaseException as e:  # noqa: BLE001
-            holder["error"] = e
-
-    t = threading.Thread(target=run_driver, daemon=True)
-    t.start()
-    driver = _await_driver()
+    run = driver_threads(mod.ablation_train, mod.config(driver_addr="127.0.0.1:auto"))
+    driver = run.await_driver()
+    assert driver.pod_mode
     proc = subprocess.run([sys.executable, str(path)], env=_worker_env(driver, tmp_path), capture_output=True,
                           text=True, timeout=TIMEOUT_S)
     assert proc.returncode == 0, proc.stderr[-2000:]
@@ -274,9 +269,7 @@ def test_pod_ablation_worker_rebuilds_the_resolver(port_env, tmp_path, monkeypat
         # the worker's own resolver built the trial's variant
         want = [] if component == "None" else [component]
         assert ablated == str(want), (component, ablated)
-    t.join(timeout=TIMEOUT_S)
-    assert "error" not in holder, holder.get("error")
-    assert holder["result"]["num_trials"] == 3
+    assert run.join()["num_trials"] == 3
 
 
 RESPAWN_SCRIPT = """

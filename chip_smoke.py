@@ -28,6 +28,37 @@ Phases, each printing one line:
             synthetic batches, through fit's prefetcher (depth 2), after a
             one-step warm-up fit: every loss finite, and each kernel
             launched exactly as often as the layers and remat demand.
+    moe.model  ``MoEDecoder(mixtral_8x7b(n_layers=2))`` (vocab 32,000, d 4096,
+            32 / 8 heads, d_ff 14,336, 8 experts, top-2; 3.16 B fp32
+            parameters) from a seed at B=2, S=2048 through the flash
+            kernels: each layer's attention output against the plain
+            version on the same q/k/v; the logits against the same weights
+            with ``default_attention``, with the plain version and with a
+            planted fault (no causal mask), each over the tokens that both
+            route to the same experts in every layer (a router near a bf16
+            tie sends a token elsewhere under any other right attention; the
+            share that flips stands beside the yardstick's); 2 / 0 / 0
+            launches; then 16 greedy cached-decode steps after a 32-token
+            prompt against the full forward (at the capacity that drops no
+            token) and ``generate``'s tokens; budget 30 s.
+    moe.train  ``Trainer.fit`` of that model (remat ``dots_attn``): a warm-up
+            step, 6 steps; finite losses, the router's aux loss in
+            ``aux_loss`` and ``total_loss``, flash launches 2 / 2 / 2 a step,
+            peak under 75 GiB; step ms, tokens/s, the step's matmul TFLOP
+            and bound; ``--profile`` splits a step by kind (expert matmuls,
+            dispatch and combine einsums, projections, attention, AdamW,
+            loss); budget 90 s.
+    dist.moe  with two or more cards, ``lagom(train_fn,
+            DistributedConfig(sharding=ShardingSpec(ep=...)))``, one NCCL
+            rank a card, moe.train's weights, data and steps: ep=2 on two;
+            ep=4 (2 experts a rank), fsdp=2 and ep=2 x fsdp=2 (4 a rank) on
+            four. Expert parallelism alone is held to moe.train's rank at
+            every step (dist.mesh's limits); under a batch split the warm-up
+            step is, and ep=2 x fsdp=2 at every step to fsdp=2 alone, its
+            yardstick (the same split, no expert axis). Experts a rank,
+            exact launches, the trainer's grad norm against the gathered
+            gradients, step ÷ moe.train's, peak; budget 150 s. With one
+            card ``"ran": false``.
 5. ring.kernels  each ring step kernel (forward, dQ, dK/dV) against its plain
             version at one rank's shapes of the ring below (B=1, C=2048,
             H=32, Kh=8, D=128): the diagonal step, a past step, the
@@ -52,8 +83,9 @@ Phases, each printing one line:
             fault (the last dK/dV rotation skipped) must land above the
             gradient limit. Each rank then times one more step. With one card
             it reports that it did not run.
-9. serve.model  ``Decoder(llama3_8b())`` at full depth (32 layers, fp32
-            masters from a seed, a bf16 copy of the projections): prompts of
+9. serve.model  ``Decoder(llama3_8b(n_layers=16))`` (cut from 32 layers for
+            the run's time; fp32 masters from a seed, a bf16 copy of the
+            projections): prompts of
             100, 517, 1000 and 2000 tokens prefilled into a dense and a paged
             batch cache (shuffled page tables), then 32 greedy steps of the
             batch. Every position's logits against the training forward (the
@@ -61,7 +93,7 @@ Phases, each printing one line:
             plain version as the yardstick; paged against dense bit for bit;
             a planted fault (one request's page table with two pages swapped)
             that the limit must catch; the cache path launches no kernel.
-10. serve.engine  ``Engine(llama3_8b(), num_slots=8)`` with its defaults
+10. serve.engine  ``Engine`` over that model, ``num_slots=8``, with its defaults
             (paged, page 16, prefix reuse, async): 16 requests, 64-1536
             tokens, eight sharing a 512-token system prefix, half greedy and
             half sampled. Every request finishes; prefix hits; the streams
@@ -297,7 +329,7 @@ Phases, each printing one line:
             4 and backward 4 + 4 under each; each policy's time and peak.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches: those of
-``train``, ``ring.train``, ``lagom.ablation``'s Decoder study,
+``train``, ``moe.model``, ``moe.train``, rank 0 of ``dist.moe``, ``ring.train``, ``lagom.ablation``'s Decoder study,
 ``dist.lagom``'s rank, rank 0 of ``dist.mesh``, ``dist.seq``, ``dist.zero``
 and ``dist.pipe`` (its single-stage part too), every rank of
 ``pod.elastic``, every trial of ``pod.hpo``, every rank of both
@@ -363,10 +395,13 @@ TOL_LOGITS_REL_L2 = 3e-2
 # but the global norm only by 2.8e-3 and the loss not at all
 TOL_DIST_LOSS_REL = 1e-6
 TOL_DIST_LEAF_GRAD_REL = 1e-4
-# the serving phases: Llama-3-8B at full depth (32 layers), fp32 masters and
-# a bf16 serving copy of the projections (48 GB) on one card. serve.model's
+# the serving phases: Llama-3-8B at depth SERVE_LAYERS (cut from the full
+# 32 so that the whole run, with the MoE phases, keeps under ~950 s), fp32
+# masters and a bf16 serving copy of the projections on one card; the CLI
+# phases still start the full model in their own process. serve.model's
 # prompts are ragged, no multiple of the 256-token read chunk or the 16-token
 # page
+SERVE_LAYERS = 16
 SERVE_PROMPTS = (100, 517, 1000, 2000)
 SERVE_STEPS = 32
 SERVE_PAGE = 16
@@ -382,7 +417,8 @@ PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 # 4.3e-2 (median) to 5.9e-2 (worst row) on an H100, so the 4-layer model
 # phase's 3e-2 cannot hold; the planted page-table fault moved its rows by
 # 0.72 (median) to 0.92. The limit sits between: 1.7x the yardstick's worst
-# row, and the fault must exceed it at its median row, not only its worst
+# row, and the fault must exceed it at its median row, not only its worst.
+# The limit was set at 32 layers and holds at SERVE_LAYERS unchanged
 TOL_SERVE_LOGITS_REL_L2 = 1e-1
 # lagom.train: the `train` configuration as the train_fn of an HPO study of
 # LAGOM_TRIALS trials, LAGOM_STEPS steps each after a warm-up step
@@ -516,6 +552,23 @@ RESUME_NOTICE = 5
 RESUME_ROWS = 64
 RESUME_SHARDS = 4
 RESUME_DATA_SEED = 7
+# the MoE phases: Mixtral-8x7B widths (vocab 32,000, d 4096, 32 / 8 heads,
+# d_ff 14,336, 8 experts, top-2, capacity factor 1.25, groups of 512
+# tokens) at depth MOE_LAYERS: 1.451 B parameters a layer, 3.16 B in all,
+# ~50.6 GB of fp32 state with the gradients and both AdamW moments. B=2,
+# S=2048: 8 groups, 160 slots an expert and group. moe.model's cached
+# decode runs MOE_DECODE_STEPS greedy steps after a MOE_DECODE_PROMPT-token
+# prompt, against the full forward of the same weights at the capacity
+# factor that drops no token (n_experts / top_k: every expert can take
+# every token of a group), which is what one token a step computes
+MOE_LAYERS = 2
+MOE_DECODE_PROMPT = 32
+MOE_DECODE_STEPS = 16
+TOL_MOE_DECODE_REL_L2 = 3e-2
+MOE_PEAK_LIMIT_GIB = 75.0
+MOE_MODEL_BUDGET_S = 30
+MOE_TRAIN_BUDGET_S = 90
+DIST_MOE_BUDGET_S = 150
 # train.remat: each setting in turn, remat=False first (the reference)
 REMAT_ORDER = ((False, "nothing"), (True, "nothing"), (True, "dots"), (True, "dots_attn"))
 # the whole run must end inside 1200 s: one still going at RUN_DEADLINE_S
@@ -3092,22 +3145,28 @@ def zero_grads(torch, layout) -> dict:
 
 def grad_norms_by_group(model, state=None) -> dict:
     """The L2 norm of each group of the model's gradients (the norm scales,
-    the embedding, attention, the MLP, ``lm_head``), every gradient
+    the embedding, attention, the MLP or the MoE block, ``lm_head``), every gradient
     gathered whole (``full_tensor``; a ZeRO-1 state's from its shards) on
     every rank and summed there, each group over the pipeline stages that
     hold a share of it: a count of its own, apart from the trainer's
     sharded norm. Every rank must call it."""
     import torch
 
+    from maggy_tpu_torch.parallel.expert import expert_params, gather_expert_tensor
+
     layout = getattr(state, "layout", None)
     whole = zero_grads(torch, layout) if layout is not None and layout.zero is not None else None
+    experts = expert_params(model)  # an MoE rank's experts: gathered over `expert` too
     sums = {}
     for name, p in model.named_parameters():
         g = whole[name] if whole is not None else p.grad
         if g is None:
             continue
-        g = g.full_tensor() if hasattr(g, "full_tensor") else g
-        group = "norm" if name.endswith("scale") else next(k for k in ("embedding", "attn", "mlp", "lm_head")
+        if name in experts:
+            g = gather_expert_tensor(g, experts[name][1])
+        else:
+            g = g.full_tensor() if hasattr(g, "full_tensor") else g
+        group = "norm" if name.endswith("scale") else next(k for k in ("embedding", "attn", "mlp", "moe", "lm_head")
                                                             if k in name)
         sums[group] = sums.get(group, 0.0) + float(g.float().square().sum())
         del g
@@ -3175,6 +3234,11 @@ def mesh_steps(ctx, model, steps: int, seq: int, reporter=None, rows_repeat: int
     torch.cuda.synchronize()
     on_card = all(getattr(p, "to_local", lambda: p)().device == ctx.device for p in state.model.parameters())
     pipe = {} if state.pipeline is None else dict(stage=state.pipeline.stage, n_micro=trainer._n_micro())
+    from maggy_tpu_torch.parallel.expert import moe_blocks
+
+    block = next((b for _, b in moe_blocks(state.model)), None)
+    if block is not None:  # the experts this rank holds
+        pipe["experts"] = int(block.w_gate.shape[0])
     return dict(metric=metrics["loss"], losses=[warm["loss"]] + losses, first_grad_norm=warm["grad_norm"],
                 params_on_card=on_card, group_grad_norms=groups,
                 grad_norm_count_rel=_rel(warm["grad_norm"], whole),
@@ -4565,6 +4629,401 @@ def phase_dist_elastic_slices(torch, cfg, card: str, seq: int = S, device=None, 
     return total
 
 
+def moe_config(**overrides):
+    """Mixtral-8x7B widths at the MoE phases' depth."""
+    from maggy_tpu_torch.models import MoEConfig
+
+    return MoEConfig.mixtral_8x7b(n_layers=MOE_LAYERS, **overrides)
+
+
+def moe_launches_per_step(n_layers: int) -> dict:
+    """What one train step of the MoE decoder launches: under its remat
+    policy (``dots_attn``, Mixtral's default as JAX's) the recompute keeps
+    the flash forward's O and LSE, so the forward runs once a layer."""
+    return {"flash_fwd": n_layers, "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+
+
+def moe_step_flops(cfg, b: int, seq: int) -> float:
+    """The matmul operations of one train step (forward, the forward again
+    under remat, backward at twice the forward): attention projections and
+    scores, the router, the dispatch and combine einsums over every capacity
+    slot, the expert FFNs over every slot (capacity_factor x the top-k
+    assignments) and the head."""
+    from maggy_tpu_torch.models.moe import capacity_of
+
+    t = b * seq
+    g = min(cfg.group_size, t)
+    n, c, e = -(-t // g), capacity_of(cfg, g), cfg.n_experts
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    attn = 2 * t * d * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd + 2 * 2 * b * cfg.n_heads * seq * seq * hd / 2
+    router = 2 * t * d * e
+    dispatch = 2 * 2 * n * g * e * c * d  # dispatch and combine
+    experts = 3 * 2 * e * n * c * d * f
+    forward = cfg.n_layers * (attn + router + dispatch + experts) + 2 * t * d * cfg.vocab_size
+    return 4 * forward  # forward, recomputed forward, backward (2 x)
+
+
+def moe_routed_forward(torch, model, tokens):
+    """``model(tokens)`` and each layer's top-k experts of every token
+    (sorted, ``[L, B, S, k]``), read from the layer's router on its MoE
+    input; and each layer's attention input and the kernel's output on its
+    way to ``wo``. The hooks only read."""
+    from maggy_tpu_torch.models.moe import top_k_lowest_first
+
+    seen, attn = [], []
+    hooks = []
+    for layer in model.layers:
+        hooks.append(layer.moe.register_forward_pre_hook(lambda _m, args: seen.append(args[0])))
+        hooks.append(layer.attn.register_forward_pre_hook(lambda _m, args: attn.append([args[0], args[1]])))
+        hooks.append(layer.attn.wo.register_forward_pre_hook(lambda _m, args: attn[-1].append(args[0])))
+    try:
+        logits = model(tokens)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    k = model.cfg.top_k
+    experts = torch.stack([
+        top_k_lowest_first(torch.softmax(layer.moe.router(x).float(), -1), k)[1].sort(-1).values
+        for layer, x in zip(model.layers, seen)])
+    return logits, experts, attn
+
+
+def phase_moe_model(torch, card: str, seq: int = S, device: str = "cuda"):
+    """``MoEDecoder(mixtral_8x7b(n_layers=MOE_LAYERS))`` on one card from
+    seeded weights at B=2, S=2048 through the flash kernels: each layer's
+    attention output against the kernels' plain version on the same q/k/v;
+    the logits against the same weights with ``default_attention``, with
+    the plain version and with a planted fault (the causal mask left off),
+    each over the tokens routed to the same experts in every layer (a token
+    whose top-2 flips between two right attentions, at a router near a tie
+    in bf16, goes to other experts: the share that flips is reported beside
+    the yardstick's, two plain attentions); the forward launches counted.
+    Then cached greedy decode against the full forward and ``generate``.
+    ``device`` is for a rehearsal on the CPU at a tiny config (``moe_config``
+    patched)."""
+    import dataclasses
+
+    from maggy_tpu_torch.models import MoEDecoder, default_attention
+    from maggy_tpu_torch.models.generate import generate, init_cache
+    from maggy_tpu_torch.models.transformer import rope
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.train import collect_aux_losses
+
+    def plain_flash(q, k, v, *, causal=True, segment_ids=None):
+        return flash.flash_fwd_reference(q, k, v, causal=causal, segment_ids=segment_ids)[0]
+
+    def planted_fault(q, k, v, *, causal=True, segment_ids=None):
+        return plain_flash(q, k, v, causal=False, segment_ids=segment_ids)
+
+    t0 = time.perf_counter()
+    cfg = moe_config()
+    gen = torch.Generator(device=device).manual_seed(11)
+    model = MoEDecoder(cfg, device=device, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (B, seq), generator=gen, device=device)
+    prompt_len, steps = MOE_DECODE_PROMPT, MOE_DECODE_STEPS
+    with torch.no_grad():
+        flash.reset_launches()
+        logits, experts, seen = moe_routed_forward(torch, model, tokens)
+        torch.cuda.synchronize()
+        launched = dict(flash.LAUNCHES)
+        aux = float(collect_aux_losses(model))
+        attn_errs = []
+        shape = (B, seq, -1, cfg.head_dim)
+        for layer, (x, positions, out) in zip(model.layers, seen):
+            a = layer.attn
+            q = rope(a.wq(x).view(shape), positions, cfg.rope_theta)
+            k = rope(a.wk(x).view(shape), positions, cfg.rope_theta)
+            ref = plain_flash(q.float(), k.float(), a.wv(x).view(shape).float())
+            o = out.view(ref.shape)
+            attn_errs.append({"o_max_abs": float((o.float() - ref).abs().max()), "o_rel_l2": rel_l2(o, ref)})
+            del q, k, ref
+        del seen
+        refs = {}
+        for name, fn in (("default_attention", default_attention), ("plain_version", plain_flash),
+                         ("planted_fault", planted_fault)):
+            other = MoEDecoder(dataclasses.replace(cfg, attention_fn=fn), device="meta")
+            other.load_state_dict(model.state_dict(), assign=True)
+            refs[name] = moe_routed_forward(torch, other, tokens)[:2]
+            del other
+
+        def held(a, b):
+            """(rel L2 over the tokens both route alike, share of tokens that flip)"""
+            same = (a[1] == b[1]).all(-1).all(0)  # [B, S]
+            return rel_l2(a[0][same], b[0][same]), 1.0 - float(same.float().mean())
+
+        errs = {
+            "kernel_vs_default_attention": held((logits, experts), refs["default_attention"]),
+            "kernel_vs_plain_version": held((logits, experts), refs["plain_version"]),
+            # the yardstick: two plain attentions on the same weights
+            "plain_version_vs_default_attention": held(refs["plain_version"], refs["default_attention"]),
+            # must exceed the limit: a wrong attention
+            "planted_fault_vs_plain_version": held(refs["planted_fault"], refs["plain_version"]),
+        }
+        all_tokens_rel = rel_l2(logits, refs["default_attention"][0])
+        del refs
+        # cached greedy decode at the capacity that drops no token, held to
+        # the full forward of the tokens it produced
+        free = MoEDecoder(dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k), device="meta")
+        free.load_state_dict(model.state_dict(), assign=True)
+        prompt = tokens[:1, :prompt_len]
+        flash.reset_launches()
+        cache = init_cache(free, prompt)
+        out = free(prompt, torch.arange(prompt_len, device=device)[None], cache=cache, kv_len=prompt_len)
+        step_logits, produced = [out[:, -1]], [prompt]
+        for i in range(steps):
+            nxt = step_logits[-1].argmax(-1)[:, None]
+            produced.append(nxt)
+            pos = torch.full((1, 1), prompt_len + i, device=device)
+            step_logits.append(free(nxt, pos, cache=cache, kv_len=prompt_len + i + 1)[:, 0])
+        torch.cuda.synchronize()
+        cache_launches = sum(flash.LAUNCHES.values())
+        seq_tokens = torch.cat(produced, 1)
+        full = free(seq_tokens)[0, prompt_len - 1:]
+        decode_rel = [rel_l2(c[0], w) for c, w in zip(step_logits, full)]
+        decode_max_abs = float((torch.stack(step_logits)[:, 0] - full).abs().max())
+        buf = torch.zeros((1, prompt_len + steps), dtype=tokens.dtype, device=device)
+        buf[:, :prompt_len] = prompt
+        recomputed = generate(free, buf, torch.tensor([prompt_len], device=device))
+        agree = float((recomputed[0, prompt_len:] == seq_tokens[0, prompt_len:]).float().mean())
+        del free, cache
+    phase_s = time.perf_counter() - t0
+    checks = {
+        "logits": tuple(logits.shape) == (B, seq, cfg.vocab_size) and logits.dtype == torch.float32
+        and bool(torch.isfinite(logits).all()),
+        "attention_per_layer": len(attn_errs) == cfg.n_layers
+        and all(e["o_max_abs"] <= TOL_O_ABS and e["o_rel_l2"] <= TOL_O_REL_L2 for e in attn_errs),
+        "kernel_vs_default_attention": errs["kernel_vs_default_attention"][0] <= TOL_LOGITS_REL_L2,
+        "kernel_vs_plain_version": errs["kernel_vs_plain_version"][0] <= TOL_LOGITS_REL_L2,
+        "planted_fault_caught": errs["planted_fault_vs_plain_version"][0] > TOL_LOGITS_REL_L2,
+        "launches": launched == {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+        "aux_loss": math.isfinite(aux) and aux > 0,
+        "cached_decode_vs_full_forward": len(decode_rel) == steps + 1 and max(decode_rel) <= TOL_MOE_DECODE_REL_L2,
+        "cache_path_launches_nothing": cache_launches == 0,
+        "generate_agrees": agree >= 0.9,
+        "within_budget": phase_s <= MOE_MODEL_BUDGET_S,
+    }
+    ok = all(checks.values())
+    emit("moe.model", ok=ok, checks=checks, layers=cfg.n_layers, shape=list(logits.shape), launches=launched,
+         aux_loss=aux, attention_per_layer=attn_errs, tol_o=dict(max_abs=TOL_O_ABS, rel_l2=TOL_O_REL_L2),
+         logits_rel_l2_and_flipped_share=errs, logits_rel_l2_every_token=all_tokens_rel,
+         tol_logits_rel_l2=TOL_LOGITS_REL_L2, decode_rel_l2=decode_rel, decode_max_abs=decode_max_abs,
+         tol_decode_rel_l2=TOL_MOE_DECODE_REL_L2, generate_token_agreement=agree, phase_s=phase_s,
+         budget_s=MOE_MODEL_BUDGET_S, card=card)
+    if not ok:
+        raise SystemExit(f"moe.model failed: {[k for k, v in checks.items() if not v]}")
+    del model, logits
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_moe_train(torch, card: str, profile: bool, seq: int = S, steps: int = TRAIN_STEPS, device: str = "cuda"):
+    """``Trainer.fit`` of the MoE decoder at ``moe.model``'s shape: a one-
+    step warm-up fit, then ``steps`` fit steps (every loss read). Returns
+    the launches and the single rank ``dist.moe`` is held to."""
+    import gc
+
+    from maggy_tpu_torch.models import MoEDecoder
+    from maggy_tpu_torch.ops import flash
+    from maggy_tpu_torch.train import Trainer, adamw, synthetic_lm_batches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = moe_config()
+    trainer = Trainer(MoEDecoder(cfg, device="meta"), adamw(1e-4), device=device)
+    data = synthetic_lm_batches(cfg.vocab_size, B, seq, seed=0)
+    state = trainer.make_state(0, next(data))
+    state, warm = trainer.fit(state, data, 1)
+    groups = grad_norms_by_group(state.model)  # the warm-up step's gradients, still held
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    losses = []
+
+    class Record:
+        def broadcast(self, value, step):
+            losses.append(value)
+
+    state, metrics = trainer.fit(state, data, steps, reporter=Record(), report_every=1, metrics_window=0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(flash.LAUNCHES)
+    phase_s = time.perf_counter() - t0
+    expected = {k: v * steps for k, v in moe_launches_per_step(cfg.n_layers).items()}
+    step_ms = 1e3 / metrics["steps_per_sec"]
+    flops = moe_step_flops(cfg, B, seq)
+    checks = {
+        "losses_finite": len(losses) == steps and all(math.isfinite(v) for v in [warm["loss"]] + losses),
+        "aux_loss": math.isfinite(metrics["aux_loss"]) and metrics["aux_loss"] > 0,
+        "total_is_loss_plus_aux": abs(metrics["total_loss"] - metrics["loss"] - metrics["aux_loss"]) <= 1e-5,
+        "launches": launches == expected,
+        "peak_within_limit": peak <= MOE_PEAK_LIMIT_GIB,
+        "within_budget": phase_s <= MOE_TRAIN_BUDGET_S,
+    }
+    ok = all(checks.values())
+    emit("moe.train", ok=ok, checks=checks, layers=cfg.n_layers, steps=steps, losses=losses,
+         aux_loss=metrics["aux_loss"], total_loss=metrics["total_loss"], grad_norm=metrics["grad_norm"],
+         step_ms=step_ms, tokens_per_sec=B * seq * metrics["steps_per_sec"], max_memory_allocated_gib=peak,
+         launches=launches, expected=expected, matmul_tflop_per_step=flops / 1e12,
+         matmul_bound_ms=flops / PEAK_BF16_FLOPS * 1e3, phase_s=phase_s, budget_s=MOE_TRAIN_BUDGET_S, card=card)
+    if not ok:
+        raise SystemExit(f"moe.train failed: {[k for k, v in checks.items() if not v]}")
+    if profile:
+        profile_moe_steps(torch, trainer, state, data, card, step_ms, cfg.d_ff)
+    single = dict(losses=[warm["loss"]] + losses, first_grad_norm=warm["grad_norm"],
+                  last_grad_norm=metrics["grad_norm"], group_grad_norms=groups, step_ms=step_ms)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, single
+
+
+def profile_moe_steps(torch, trainer, state, data, card: str, step_ms: float, d_ff: int, n: int = 2) -> None:
+    """``moe.train.profile``: device time by kind over ``n`` steps. The
+    matmul kernels are split by the operator that launched them: a batched
+    matmul with the FFN width among its shapes is an expert matmul, any
+    other batched matmul a dispatch or combine einsum, a plain one a
+    projection (attention, router, head)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        for _ in range(n):
+            state, _ = trainer.step(state, next(data))
+        torch.cuda.synchronize()
+    kinds = dict(attention=0.0, adamw_and_grad_norm=0.0, loss_and_softmax=0.0, matmul=0.0, other=0.0)
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.is_user_annotation:
+            continue
+        ms = evt.self_device_time_total / 1e3 / n
+        cat = _category(evt.key)
+        if cat.startswith("ring_"):
+            kinds["attention"] += ms
+        elif cat == "optimizer_and_grad_norm":
+            kinds["adamw_and_grad_norm"] += ms
+        elif cat == "loss" and ("softmax" in evt.key.lower() or "nll" in evt.key.lower()):
+            kinds["loss_and_softmax"] += ms
+        elif cat == "matmul":
+            kinds["matmul"] += ms
+        else:
+            kinds["other"] += ms
+    matmuls = dict(expert_matmuls=0.0, dispatch_combine_einsums=0.0, projections=0.0)
+    for evt in prof.key_averages(group_by_input_shape=True):
+        if evt.key not in ("aten::bmm", "aten::mm", "aten::addmm"):
+            continue
+        ms = evt.self_device_time_total / 1e3 / n
+        if evt.key != "aten::bmm":
+            matmuls["projections"] += ms
+        elif any(d_ff in shape for shape in evt.input_shapes if shape):
+            matmuls["expert_matmuls"] += ms
+        else:
+            matmuls["dispatch_combine_einsums"] += ms
+    busy = sum(kinds.values())
+    emit("moe.train.profile", steps=n, device_ms_per_step=busy, idle_share=1.0 - busy / step_ms,
+         by_kind_ms=kinds, matmul_by_operator_ms=matmuls, card=card)
+
+
+def dist_moe_train(model, hparams, reporter, ctx):
+    """dist.moe's train_fn, run by each rank: ``moe.train``'s steps under the
+    rank's mesh."""
+    return mesh_steps(ctx, model, hparams["steps"], hparams["seq"], reporter)
+
+
+def phase_dist_moe(torch, card: str, single: dict, seq: int = S, steps: int = TRAIN_STEPS) -> dict:
+    """Expert parallelism across cards under ``lagom(train_fn,
+    DistributedConfig(sharding=ShardingSpec(ep=...)))``, one spawned NCCL
+    rank a card, ``moe.train``'s weights, data and steps: ep=2 on two
+    cards; ep=4, ep=2 x fsdp=2 and, as the latter's yardstick, fsdp=2 alone
+    (the same batch split, no expert axis) on four. A spec with no batch
+    split (ep alone) is held to ``moe.train``'s single rank under
+    dist.mesh's limits at every step. Under a batch split the sums run in
+    another order, and a router near a bf16 tie sends a token to another
+    expert, which the later steps amplify: its warm-up step is held to the
+    single rank (loss, gradient groups, the trainer's count), and every
+    step of ep=2 x fsdp=2 to the fsdp=2 yardstick's under dist.mesh's
+    limits. Returns rank 0's flash launches, summed over the specs."""
+    import gc
+    import tempfile
+    from pathlib import Path
+
+    from maggy_tpu_torch import experiment
+    from maggy_tpu_torch.config import DistributedConfig
+    from maggy_tpu_torch.core import env as env_mod
+    from maggy_tpu_torch.core.env.base import BaseEnv
+    from maggy_tpu_torch.models import MoEDecoder
+    from maggy_tpu_torch.parallel import ShardingSpec
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("dist.moe", ok=True, ran=False, cards=cards, card=card)
+        return {}
+    specs = [("ep2", dict(ep=2))] if cards < 4 else [("ep4", dict(ep=4)), ("fsdp2", dict(fsdp=2)),
+                                                      ("ep2_fsdp2", dict(ep=2, fsdp=2))]
+    yardstick = {"ep2_fsdp2": "fsdp2"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = moe_config()
+    t0 = time.perf_counter()
+    results, launches = {}, {}
+    for key, kw in specs:
+        spec = ShardingSpec(**kw)
+        left = max(1.0, DIST_MOE_BUDGET_S - (time.perf_counter() - t0))
+        with tempfile.TemporaryDirectory(prefix="dist_moe_") as root:
+            env_mod.set_instance(BaseEnv(root))  # logs in a temporary root, never the repo
+            try:
+                experiment.lagom(dist_moe_train, DistributedConfig(
+                    module=MoEDecoder(cfg, device="meta"), hparams=dict(steps=steps, seq=seq), sharding=spec,
+                    num_executors=spec.num_devices, hb_interval=LAGOM_HB, worker_timeout=left,
+                ))
+                outs = sorted(Path(root).rglob("worker_*/.outputs.json"), key=lambda p: int(p.parent.name[7:]))
+                results[key] = [json.loads(p.read_text()) for p in outs]
+            finally:
+                env_mod.set_instance(None)
+        for name, count in results[key][0]["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    phase_s = time.perf_counter() - t0
+    expected = {k: (1 + steps) * v for k, v in moe_launches_per_step(cfg.n_layers).items()}
+    rows = []
+    for key, kw in specs:
+        for rank, res in enumerate(results[key]):
+            loss_rel = [_rel(g, w) for g, w in zip(res["losses"], single["losses"])]
+            norm_rel = dict(first=_rel(res["first_grad_norm"], single["first_grad_norm"]),
+                            last=_rel(res["last_grad_norm"], single["last_grad_norm"]))
+            group_rel = {k: _rel(v, single["group_grad_norms"][k]) for k, v in res["group_grad_norms"].items()}
+            split = math.prod(kw.get(a, 1) for a in ("dp", "fsdp")) > 1
+            ref = results[yardstick[key]][0] if key in yardstick else None
+            ref_loss_rel = None if ref is None else max(_rel(g, w) for g, w in zip(res["losses"], ref["losses"]))
+            ref_norm_rel = None if ref is None else max(_rel(res["first_grad_norm"], ref["first_grad_norm"]),
+                                                         _rel(res["last_grad_norm"], ref["last_grad_norm"]))
+            held = (loss_rel[0] <= TOL_MESH_LOSS_REL and norm_rel["first"] <= TOL_MESH_GRAD_NORM_REL
+                    if split else max(loss_rel) <= TOL_MESH_LOSS_REL and max(norm_rel.values()) <= TOL_MESH_GRAD_NORM_REL)
+            if ref is not None:
+                held = held and ref_loss_rel <= TOL_MESH_LOSS_REL and ref_norm_rel <= TOL_MESH_GRAD_NORM_REL
+            rows.append(dict(spec=key, rank=rank, mesh=res["mesh"], experts=res.get("experts"), losses=res["losses"],
+                             loss_rel_to_single=loss_rel, grad_norm_rel_to_single=norm_rel,
+                             loss_rel_to_yardstick=ref_loss_rel, grad_norm_rel_to_yardstick=ref_norm_rel,
+                             group_grad_norm_rel=group_rel, grad_norm_count_rel=res["grad_norm_count_rel"],
+                             step_ms=res["step_ms"], ratio_to_single=res["step_ms"] / single["step_ms"],
+                             peak_gib=res["peak_gib"], launches=res["launches"],
+                             ok=held and len(res["losses"]) == steps + 1
+                             and set(group_rel) == set(single["group_grad_norms"])
+                             and max(group_rel.values()) <= TOL_MESH_GROUP_NORM_REL
+                             and res["grad_norm_count_rel"] <= TOL_GRAD_NORM_COUNT_REL
+                             and res["launches"] == expected
+                             and res.get("experts") == cfg.n_experts // kw.get("ep", 1) and res["params_on_card"]))
+    n_ranks = sum(ShardingSpec(**kw).num_devices for _, kw in specs)
+    ok = len(rows) == n_ranks and all(r["ok"] for r in rows) and phase_s <= DIST_MOE_BUDGET_S
+    emit("dist.moe", ok=ok, ran=True, cards=cards, ranks=rows, yardsticks=yardstick, expected_launches=expected,
+         tol=dict(loss_rel=TOL_MESH_LOSS_REL, grad_norm_rel=TOL_MESH_GRAD_NORM_REL,
+                  group_grad_norm_rel=TOL_MESH_GROUP_NORM_REL, grad_norm_count_rel=TOL_GRAD_NORM_COUNT_REL),
+         phase_s=phase_s, budget_s=DIST_MOE_BUDGET_S, card=card)
+    if not ok:
+        raise SystemExit("dist.moe failed: a rank's losses, grad norms (whole, by group, or as its trainer counts "
+                         "them), experts or launches disagree with moe.train's single rank or its yardstick, or "
+                         "the phase ran past its budget")
+    return launches
+
+
 def _category(name: str) -> str:
     low = name.lower()
     # the three attention kernels, whether a flash or a ring wrapper launched them
@@ -4658,6 +5117,12 @@ def main(argv=None) -> int:
     train_ref = {}
     launches, train_step_ms, train_peak = phase_train(torch, N_LAYERS, S, TRAIN_STEPS, card, args.profile,
                                                       train_ref)
+    # the MoE decoder at Mixtral widths: its forward and cached decode
+    # through the flash kernels, its training, then expert parallelism
+    # across cards held to that one card's steps
+    moe_launches = [phase_moe_model(torch, card)]
+    train_launches, moe_single = phase_moe_train(torch, card, args.profile)
+    moe_launches += [train_launches, phase_dist_moe(torch, card, moe_single)]
     rows.update(phase_ring_kernels(torch))
     phase_ring_model(torch, N_LAYERS, RING_S)
     ring_launches = phase_ring_train(torch, N_LAYERS, RING_S, TRAIN_STEPS, card, args.profile)
@@ -4672,7 +5137,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(4)
-    master = Decoder(DecoderConfig.llama3_8b(), device="cuda", generator=gen)
+    master = Decoder(DecoderConfig.llama3_8b(n_layers=SERVE_LAYERS), device="cuda", generator=gen)
     phase_serve_model(torch, master, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4731,8 +5196,8 @@ def main(argv=None) -> int:
     # the rest of the Trainer: checkpoints, the preemption save and resume
     # from sharded data, then the remat policies; their flash launches join
     # the `train` phase's in the kernels line
-    for more in (ablation_launches, single["launches"], mesh_launches, seq_launches, zero_launches, pipe_launches,
-                 pod_launches, hpo_launches, elastic_launches,
+    for more in (*moe_launches, ablation_launches, single["launches"], mesh_launches, seq_launches, zero_launches,
+                 pipe_launches, pod_launches, hpo_launches, elastic_launches,
                  phase_train_resume(torch, DecoderConfig.llama3_8b(n_layers=RESUME_LAYERS), S, card, train_peak,
                                     train_step_ms),
                  phase_train_remat(torch, cfg, S, card)):

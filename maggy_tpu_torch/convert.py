@@ -19,7 +19,8 @@ The JAX pipeline's stage-stacked tree (every leaf with a leading
 the port's per-stage state dicts (:func:`decoder_stage_params_from_flax`),
 and optax's AdamW moments ``mu``/``nu``, which mirror the parameter tree,
 onto ``torch.optim.AdamW``'s per-parameter state
-(:func:`adamw_state_from_optax`).
+(:func:`adamw_state_from_optax`). The ``MoEDecoder``'s tree maps the same
+way (:func:`moe_params_from_flax`).
 """
 
 from __future__ import annotations
@@ -35,37 +36,67 @@ def _arr(x) -> np.ndarray:
     return np.asarray(getattr(x, "value", x))
 
 
+def _flax_layer(tree, cfg, i: int):
+    """Layer ``i``'s subtree of a Decoder-family tree, as numpy arrays."""
+    if cfg.scan_layers:
+        return _map(tree["layers"]["layer"], lambda x: _arr(x)[i])
+    return _map(tree[f"layers_{i}"]["layer"], _arr)
+
+
+def _attention_params(out: Dict[str, Any], pre: str, p, cfg) -> None:
+    """A layer's norms and attention projections into ``out``."""
+    d, hd = cfg.d_model, cfg.head_dim
+    attn = p["attn"]
+    out[pre + "attn_norm.scale"] = p["attn_norm"]["scale"]
+    out[pre + "mlp_norm.scale"] = p["mlp_norm"]["scale"]
+    for name, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads), ("wv", cfg.n_kv_heads)):
+        out[pre + f"attn.{name}.weight"] = attn[name]["kernel"].reshape(d, heads * hd).T
+    out[pre + "attn.wo.weight"] = attn["wo"]["kernel"].reshape(cfg.n_heads * hd, d).T
+
+
+def _as_state_dict(out: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v)).to(cfg.param_dtype) for k, v in out.items()}
+
+
 def decoder_params_from_flax(params_np: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """``state_dict`` for ``maggy_tpu_torch.models.Decoder(cfg)`` from the
-    JAX ``Decoder``'s params; ``cfg.scan_layers`` names the tree's layout."""
+    JAX ``Decoder``'s params; ``cfg.scan_layers`` names the tree's layout.
+    An ``MoEConfig`` reads the JAX ``MoEDecoder``'s (:func:`moe_params_from_flax`)."""
+    if hasattr(cfg, "n_experts"):
+        return moe_params_from_flax(params_np, cfg)
     tree = params_np.get("params", params_np)
-    d, hd = cfg.d_model, cfg.head_dim
-
-    def layer(i: int):
-        if cfg.scan_layers:
-            stacked = tree["layers"]["layer"]
-            return _map(stacked, lambda x: _arr(x)[i])
-        return _map(tree[f"layers_{i}"]["layer"], _arr)
-
     out = {"embedding": _arr(tree["embedding"])}
     for i in range(cfg.n_layers):
-        p = layer(i)
-        attn, mlp = p["attn"], p["mlp"]
+        p = _flax_layer(tree, cfg, i)
         pre = f"layers.{i}."
-        out[pre + "attn_norm.scale"] = p["attn_norm"]["scale"]
-        out[pre + "mlp_norm.scale"] = p["mlp_norm"]["scale"]
-        for name, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads), ("wv", cfg.n_kv_heads)):
-            out[pre + f"attn.{name}.weight"] = attn[name]["kernel"].reshape(d, heads * hd).T
-        out[pre + "attn.wo.weight"] = attn["wo"]["kernel"].reshape(cfg.n_heads * hd, d).T
+        _attention_params(out, pre, p, cfg)
         for name in ("w_gate", "w_up", "w_down"):
-            out[pre + f"mlp.{name}.weight"] = mlp[name]["kernel"].T
+            out[pre + f"mlp.{name}.weight"] = p["mlp"][name]["kernel"].T
     out["final_norm.scale"] = _arr(tree["final_norm"]["scale"])
     if not cfg.tie_embeddings:
         out["lm_head.weight"] = _arr(tree["lm_head"]["kernel"]).T
-    return {
-        k: torch.from_numpy(np.array(v)).to(cfg.param_dtype)
-        for k, v in out.items()
-    }
+    return _as_state_dict(out, cfg)
+
+
+def moe_params_from_flax(params_np: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for ``maggy_tpu_torch.models.MoEDecoder(cfg)`` from
+    the JAX ``MoEDecoder``'s params (scanned: ``layers/layer/moe/w_gate``
+    ``[n_layers, e, d, d_ff]`` and so on). The expert weights keep JAX's
+    ``[experts, ...]`` layout; the router's ``[d, e]`` kernel becomes a
+    ``[e, d]`` weight."""
+    tree = params_np.get("params", params_np)
+    out = {"embedding": _arr(tree["embedding"])}
+    for i in range(cfg.n_layers):
+        p = _flax_layer(tree, cfg, i)
+        pre = f"layers.{i}."
+        _attention_params(out, pre, p, cfg)
+        moe = p["moe"]
+        out[pre + "moe.router.weight"] = moe["router"]["kernel"].T
+        for name in ("w_gate", "w_up", "w_down"):
+            out[pre + f"moe.{name}"] = moe[name]
+    out["final_norm.scale"] = _arr(tree["final_norm"]["scale"])
+    out["lm_head.weight"] = _arr(tree["lm_head"]["kernel"]).T
+    return _as_state_dict(out, cfg)
 
 
 def unstack_flax_stages(stage_tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -101,8 +132,9 @@ def adamw_state_from_optax(opt_state, cfg, n_stages: Optional[int] = None):
     ``ScaleByAdamState`` in the chain: ``count``, and ``mu``/``nu``
     mirroring the parameters): ``{name: {"step", "exp_avg", "exp_avg_sq"}}``
     keyed by the port's parameter names, the moments laid out as the
-    parameters are. With ``n_stages`` the trees are JAX's stage-stacked
-    pipeline trees and the result is one dict a stage."""
+    parameters are (an ``MoEConfig``'s as the ``MoEDecoder``'s). With
+    ``n_stages`` the trees are JAX's stage-stacked pipeline trees and the
+    result is one dict a stage."""
     adam = next(s for s in opt_state if hasattr(s, "mu"))
     count = float(np.asarray(adam.count))
 

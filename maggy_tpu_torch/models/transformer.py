@@ -581,7 +581,14 @@ class Decoder(nn.Module):
     ``device`` defaults to CUDA and raises without it; ``device="meta"``
     builds the shapes only (for weights loaded later). Weights are drawn
     from ``generator`` with the JAX package's initialisers: N(0, 0.02) for
-    projections, N(0, 1) for the embedding, ones for norm scales."""
+    projections, N(0, 1) for the embedding, ones for norm scales.
+
+    ``layer_cls`` is the class of each layer (built as ``layer_cls(cfg,
+    device)``, called as :class:`DecoderLayer` is); a model family with
+    another layer (:class:`~maggy_tpu_torch.models.moe.MoEDecoder`) sets
+    it."""
+
+    layer_cls = DecoderLayer
 
     def __init__(self, cfg: DecoderConfig, *, device=None, generator=None):
         super().__init__()
@@ -590,7 +597,7 @@ class Decoder(nn.Module):
         self.embedding = nn.Parameter(
             torch.empty((cfg.vocab_size, cfg.d_model), dtype=cfg.param_dtype, device=device)
         )
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(self.layer_cls(cfg, device) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg, device)
         self.lm_head = None if cfg.tie_embeddings else Dense(cfg.d_model, cfg.vocab_size, cfg, device)
         # [n_layers, 2] numpy LOCO gates or None; config, not state

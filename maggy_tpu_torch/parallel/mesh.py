@@ -16,8 +16,9 @@ leaves the default group (:func:`leave_group`) and builds a new mesh over
 the ranks of the slices still active.
 
 Every axis has a process group of its own (``mesh.get_group(axis)``;
-:func:`seq_group`, :func:`stage_group`): ring and Ulysses attention run
-over ``seq``, the bucketed and ZeRO-1 reductions over ``data`` (then
+:func:`seq_group`, :func:`expert_group`, :func:`stage_group`): ring and
+Ulysses attention run over ``seq``, the MoE expert exchange over
+``expert``, the bucketed and ZeRO-1 reductions over ``data`` (then
 ``slice``), the pipeline's hand-offs between the previous and the next
 stage (:func:`stage_neighbors`) over ``stage``.
 
@@ -35,6 +36,7 @@ import torch
 
 from maggy_tpu_torch.parallel.spec import (
     AXIS_DATA,
+    AXIS_EXPERT,
     AXIS_SEQ,
     AXIS_SLICE,
     AXIS_STAGE,
@@ -166,6 +168,12 @@ def seq_group(mesh):
     """The process group of this rank's ranks along ``seq``: those holding
     the other chunks of its sequence, in chunk order."""
     return mesh.get_group(AXIS_SEQ)
+
+
+def expert_group(mesh):
+    """The process group of this rank's ranks along ``expert``: one rank per
+    share of the experts, in expert order, routing the same tokens."""
+    return mesh.get_group(AXIS_EXPERT)
 
 
 def stage_group(mesh):

@@ -107,6 +107,11 @@ _DECODER_AXES = (
     (r"layers\.\d+\.mlp\.w_(gate|up)\.weight", ("mlp", "embed")),
     (r"layers\.\d+\.mlp\.w_down\.weight", ("embed", "mlp")),
     (r"lm_head\.weight", ("vocab", "embed")),
+    # the MoEDecoder's (models/moe.py): router kernel ("embed", None) as
+    # [e, d]; the experts in JAX's own [experts, ...] layout
+    (r"layers\.\d+\.moe\.router\.weight", (None, "embed")),
+    (r"layers\.\d+\.moe\.w_(gate|up)", ("expert", "embed", "mlp")),
+    (r"layers\.\d+\.moe\.w_down", ("expert", "mlp", "embed")),
 )
 
 
@@ -127,15 +132,20 @@ def logical_axes(name: str) -> Tuple[str, ...]:
 
 def placed_mesh_axes(param) -> frozenset:
     """The mesh axes (of extent > 1) a parameter is actually sharded over:
-    those of its DTensor placements that shard a dim."""
+    those of its DTensor placements that shard a dim, and ``expert`` for an
+    MoE expert weight that holds its rank's experts alone
+    (:mod:`~maggy_tpu_torch.parallel.expert`)."""
+    from maggy_tpu_torch.parallel.expert import expert_extent
+
+    axes = {AXIS_EXPERT} if expert_extent(param) > 1 else set()
     mesh = getattr(param, "device_mesh", None)
     if mesh is None:
-        return frozenset()
+        return frozenset(axes)
     names = mesh.mesh_dim_names
-    return frozenset(
+    return frozenset(axes | {
         names[i] for i, p in enumerate(param.placements)
         if not (p.is_replicate() or p.is_partial()) and mesh.mesh.shape[i] > 1
-    )
+    })
 
 
 def check_tensor_parallel(cfg, tp: int) -> None:
@@ -175,18 +185,24 @@ def _local_output(mod, output, mesh):
 
 
 def shard_decoder(model, mesh):
-    """Lay ``model`` (a materialised ``Decoder``, the same weights on every
-    rank) out on ``mesh`` in place and return it: tensor parallelism over
-    ``tensor``, then FSDP2 over (``data``, ``fsdp``). Every rank must call
-    it. Afterwards each parameter is a DTensor (or, on a mesh with no axis
+    """Lay ``model`` (a materialised ``Decoder`` or ``MoEDecoder``, the
+    same weights on every rank) out on ``mesh`` in place and return it:
+    tensor parallelism over ``tensor``, the MoE blocks' experts over
+    ``expert`` (:func:`~maggy_tpu_torch.parallel.expert.expert_parallelize`),
+    then FSDP2 over (``data``, ``fsdp``). Every rank must call it.
+    Afterwards each parameter is a DTensor (or, on a mesh with no axis
     above 1 that touches it, the plain tensor)."""
+    from maggy_tpu_torch.parallel import expert
     from maggy_tpu_torch.parallel.mesh import mesh_shape
 
     shape = mesh_shape(mesh)
     tp = shape.get(AXIS_TENSOR, 1)
     check_tensor_parallel(model.cfg, tp)
+    moe = expert.is_moe(model)
     if tp > 1:
         tensor_parallelize(model, mesh[AXIS_TENSOR])
+    if moe:
+        expert.expert_parallelize(model, mesh)
     if fsdp_applies(shape):
         from torch.distributed.fsdp import fully_shard
 
@@ -207,6 +223,8 @@ def shard_decoder(model, mesh):
                 # plain SUM (gloo has no pre-multiplied sum)
                 mod.set_gradient_divide_factor(1.0)
                 mod.set_force_sum_reduction_for_comms(True)
+    if moe:
+        expert.tag_expert_params(model)
     return model
 
 

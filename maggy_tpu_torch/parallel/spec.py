@@ -9,9 +9,11 @@ axes (pipeline stage, data, fsdp, expert, sequence, tensor); the port runs
 attention over the ``seq`` axis, ``pp`` as the pipeline schedules of
 :mod:`maggy_tpu_torch.parallel.pipeline` over the ``stage`` axis, and
 ``zero_stage``/``bucket_mb`` as the bucketed and ZeRO-1 steps of
-:mod:`maggy_tpu_torch.parallel.overlap`. What it does not run yet raises
-``NotImplementedError`` at construction, naming its ROADMAP queue 1 item:
-``ep`` (item 8). As in JAX, ``pp`` with ``sp`` is refused by the trainer.
+:mod:`maggy_tpu_torch.parallel.overlap`, and ``ep`` as the MoE experts over
+the ``expert`` axis (:mod:`maggy_tpu_torch.parallel.expert`). What it does
+not run yet raises ``NotImplementedError`` at construction, naming its
+ROADMAP queue 1 item: ``ep`` with ``tp``, ``sp`` or ``pp`` (item 8b). As in
+JAX, ``pp`` with ``sp`` is refused by the trainer.
 """
 
 from __future__ import annotations
@@ -61,7 +63,10 @@ class ShardingSpec:
               ``data`` (a pure ``dp`` mesh; elsewhere it stays off, with
               a warning, as in JAX);
     ``bucket_mb`` the gradient-reduction bucket in MiB (None: unbucketed);
-    ``ep``: the JAX spec's field, accepted only at 1.
+    ``ep``    expert parallelism over ``expert``: each rank holds
+              ``n_experts / ep`` of an MoE model's experts, the batch is
+              not split over it; with ``dp`` and ``fsdp`` (with ``tp``,
+              ``sp`` or ``pp`` it raises, naming item 8b).
     """
 
     dp: int
@@ -87,7 +92,9 @@ class ShardingSpec:
         if bucket_mb is not None and not float(bucket_mb) > 0:
             raise ValueError(f"ShardingSpec.bucket_mb must be positive (or None), got {bucket_mb!r}")
         if ep > 1:
-            _refuse(f"expert parallelism (ep={ep}, with moe.py)", "8")
+            with_ep = [f"{n}={values[n]}" for n in ("tp", "sp", "pp") if values[n] > 1]
+            if with_ep:
+                _refuse(f"expert parallelism with {', '.join(with_ep)} (ep={ep})", "8b")
         for name, v in values.items():
             object.__setattr__(self, name, v)
 
@@ -103,8 +110,8 @@ class ShardingSpec:
     def preset(cls, name: str, num_devices: int) -> "ShardingSpec":
         """The JAX package's presets: "dp"/"ddp" pure data parallel,
         "fsdp"/"zero"/"zero3" full sharding, "tp" tensor parallel, "2d"
-        fsdp x tp, "sp" sequence parallel, "pp" pipeline stages; "ep"
-        raises, naming its item."""
+        fsdp x tp, "sp" sequence parallel, "pp" pipeline stages, "ep"
+        expert parallel with the fsdp remainder."""
         n = num_devices
         if name in ("dp", "ddp"):
             return cls(dp=n)

@@ -15,6 +15,7 @@ from maggy_tpu_torch.train.trainer import (
     Trainer,
     TrainState,
     classification_loss_fn,
+    collect_aux_losses,
     lm_loss_fn,
     shard_sequence,
 )
@@ -33,6 +34,7 @@ __all__ = [
     "adamw",
     "batch_iterator",
     "classification_loss_fn",
+    "collect_aux_losses",
     "host_shard",
     "lm_loss_fn",
     "restore_zero_compat",

@@ -55,6 +55,12 @@ format; a restore has rank 0 read it and send each rank its stage's share.
 So a pp checkpoint restores onto another pp degree, onto pp x tp and onto
 one device, and a one-device checkpoint onto pp.
 
+Under ``expert`` (an ``MoEDecoder`` whose ranks hold ``n_experts / ep``
+experts each) the full state dicts hold a rank's own experts only: a save
+gathers each expert weight and its moments over ``expert`` too, so rank 0
+writes them whole, ``[experts, ...]``, in the one-device format; a restore
+broadcasts rank 0's whole tensors and each rank keeps its experts' share.
+
 A save commits atomically, as orbax's does: the step is written into a
 temporary directory whose name is not a step number, its file and the
 directory are fsync'd, the directory is renamed to ``<step>`` and the parent
@@ -454,9 +460,11 @@ class Checkpointer:
         # two calls: set_state_dict would read the other ranks' empty model
         # dict as "optimizer only" and skip the model's broadcast
         options = StateDictOptions(full_state_dict=True, broadcast_from_rank0=True)
+        experts = _first_experts(state, model_sd, optim_sd) if dist.get_rank() == 0 else {}
         with telemetry.get().span("checkpoint_restore", step=value):
             set_model_state_dict(state.model, model_sd, options=options)
             set_optimizer_state_dict(state.model, state.optimizer, optim_sd, options=options)
+            _scatter_experts(state, experts)
         state.step = value
         return state
 
@@ -534,8 +542,12 @@ def _full_payload(step: int, state: Any) -> Optional[Dict[str, Any]]:
     model_sd, optim_sd = get_state_dict(
         state.model, state.optimizer, options=StateDictOptions(full_state_dict=True, cpu_offload=True)
     )
+    experts = _gather_experts(state)
     if dist.get_rank() != 0:
         return None
+    for name, (param, moments) in experts.items():
+        model_sd[name] = param
+        optim_sd["state"][name].update(moments)
     names = [name for name, _ in state.model.named_parameters()]
     index = {name: i for i, name in enumerate(names)}
     return {
@@ -549,6 +561,72 @@ def _full_payload(step: int, state: Any) -> Optional[Dict[str, Any]]:
             ],
         },
     }
+
+
+def _expert_tensors(state: Any):
+    """``(name, parameter, {moment: tensor}, placement)`` of each MoE expert
+    weight sharded over ``expert``, with its AdamW moments."""
+    from maggy_tpu_torch.parallel.expert import expert_params
+
+    for name, (p, place) in expert_params(state.model).items():
+        moments = {k: v for k, v in state.optimizer.state.get(p, {}).items()
+                   if isinstance(v, torch.Tensor) and v.dim() > 0}
+        yield name, p, moments, place
+
+
+def _gather_experts(state: Any) -> Dict[str, Any]:
+    """Every expert weight sharded over ``expert``, and its moments, whole
+    (``[experts, ...]``) on rank 0's host: ``{name: (parameter, {moment:
+    tensor})}``; the other ranks take part and get ``{}``. A full state
+    dict holds a rank's own experts only."""
+    import torch.distributed as dist
+
+    from maggy_tpu_torch.parallel.expert import gather_expert_tensor
+
+    out = {}
+    for name, p, moments, place in _expert_tensors(state):
+        whole = {k: gather_expert_tensor(v, place) for k, v in [("param", p), *moments.items()]}
+        if dist.get_rank() == 0:
+            whole = {k: v.cpu() for k, v in whole.items()}
+            out[name] = (whole.pop("param"), whole)
+    return out
+
+
+def _first_experts(state: Any, model_sd: Dict[str, Any], optim_sd: Dict[str, Any]) -> Dict[str, Any]:
+    """On rank 0 before a restore under ``expert``: the whole expert
+    tensors of the loaded state dicts, taken out (``{name: {"param" or
+    moment: tensor}}``) and replaced by the shapes a rank holds (the first
+    rank's experts), so the state dicts fit the live model."""
+    out = {}
+    for name, _, _, place in _expert_tensors(state):
+        if name not in model_sd:
+            continue
+        n = model_sd[name].shape[0] // place.ep
+        whole = {"param": model_sd[name]}
+        model_sd[name] = model_sd[name][:n]
+        for k, v in optim_sd["state"].get(name, {}).items():
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                whole[k] = v
+                optim_sd["state"][name][k] = v[:n]
+        out[name] = whole
+    return out
+
+
+def _scatter_experts(state: Any, whole: Dict[str, Any]) -> None:
+    """After a restore under ``expert``: rank 0's whole expert tensors
+    (``_first_experts``) broadcast, and each rank's share copied into its
+    parameters and moments."""
+    from maggy_tpu_torch.parallel.expert import scatter_expert_tensor
+
+    tensors = list(_expert_tensors(state))
+    if not tensors:
+        return
+    first = tensors[0][1]
+    whole = _broadcast_tree(whole, (first.to_local() if hasattr(first, "to_local") else first).device)
+    for name, p, moments, place in tensors:
+        for k, dst in [("param", p), *moments.items()]:
+            scatter_expert_tensor(dst, whole[name][k], place)
+        del whole[name]
 
 
 def _pipeline_payload(step: int, state: Any) -> Optional[Dict[str, Any]]:
@@ -743,7 +821,10 @@ def _copy_into(state: Any, payload: Dict[str, Any]) -> None:
 
 def _check_params(state: Any, saved: Dict[str, Any]) -> None:
     """Raise ValueError unless a checkpoint's parameters are the live
-    model's, by name, order and shape (a DTensor by its global shape)."""
+    model's, by name, order and shape (a DTensor by its global shape, an
+    expert weight sharded over ``expert`` by all its experts)."""
+    from maggy_tpu_torch.parallel.expert import expert_extent
+
     params = dict(state.model.named_parameters())
     if list(saved) != list(params):
         missing, extra = set(params) - set(saved), set(saved) - set(params)
@@ -752,8 +833,11 @@ def _check_params(state: Any, saved: Dict[str, Any]) -> None:
             f"unexpected {sorted(extra)}, or in another order)"
         )
     for name, p in params.items():
-        if tuple(saved[name].shape) != tuple(p.shape):
-            raise ValueError(f"{name}: checkpoint shape {tuple(saved[name].shape)} != {tuple(p.shape)}")
+        shape = tuple(p.shape)
+        if expert_extent(p) > 1:
+            shape = (shape[0] * expert_extent(p),) + shape[1:]
+        if tuple(saved[name].shape) != shape:
+            raise ValueError(f"{name}: checkpoint shape {tuple(saved[name].shape)} != {shape}")
 
 
 @torch.no_grad()

@@ -167,11 +167,17 @@ def decoder_pipeline_parts(model: Any, n_stages: int, tp: int = 1, mesh=None, ep
     ``auto_attention`` on whatever heads the stage holds (the flash kernels
     on CUDA, ``n_heads / tp`` of them under tensor parallelism), so it needs
     no mesh."""
+    from maggy_tpu_torch.parallel.expert import is_moe
+
+    if is_moe(model):
+        raise NotImplementedError(
+            "pipeline parallelism (pp>1) with the MoEDecoder (its router terms through the stages, pp x ep) "
+            "is ROADMAP queue 1 item 8b, not ported yet"
+        )
     if not isinstance(model, Decoder):
         raise ValueError(
-            "Pipeline parallelism (pp>1) currently supports the Decoder family only (MoEDecoder is ROADMAP "
-            f"queue 1 item 8), got {type(model).__name__}. Drop pp from the ShardingSpec or use "
-            "parallel.pipeline primitives directly."
+            "Pipeline parallelism (pp>1) currently supports the Decoder family only, got "
+            f"{type(model).__name__}. Drop pp from the ShardingSpec or use parallel.pipeline primitives directly."
         )
     cfg = model.cfg
     if cfg.decode:
@@ -197,8 +203,8 @@ def decoder_pipeline_parts(model: Any, n_stages: int, tp: int = 1, mesh=None, ep
     if ep > 1:
         raise ValueError(
             f"ep={ep} under pp>1 needs an MoE model (got {type(model).__name__}): a dense model has no expert "
-            "dims, so the expert axis would silently replicate every stage param; MoE models and expert "
-            "parallelism are ROADMAP queue 1 item 8, not ported yet"
+            "dims, so the expert axis would silently replicate every stage param; pipelines with MoE models "
+            "and expert parallelism are ROADMAP queue 1 item 8b, not ported yet"
         )
     from maggy_tpu_torch.parallel.sharding import check_tensor_parallel
 

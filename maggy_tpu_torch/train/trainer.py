@@ -43,6 +43,7 @@ from torch import nn
 
 from maggy_tpu_torch.parallel import overlap
 from maggy_tpu_torch.parallel import sharding as shd
+from maggy_tpu_torch.parallel.expert import expert_extent, expert_params, is_moe
 from maggy_tpu_torch.parallel.mesh import any_rank, from_rank0, host_group, mesh_shape, seq_group, stage_group
 from maggy_tpu_torch.parallel.ringattention import LocalRing, ProcessGroupRing
 from maggy_tpu_torch.parallel.spec import (
@@ -235,20 +236,22 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def _global_norm(grads, holders: Optional[int] = None) -> torch.Tensor:
+def _global_norm(grads, holders: Optional[int] = None, splits=None) -> torch.Tensor:
     """The L2 norm of every gradient, whole, as a plain tensor equal on
     every rank: each rank sums the squares of the shards it holds, each
     divided by the number of ranks holding that shard (a DTensor's
     replicas, or every rank holding the tensor: ``holders``, by default the
-    world; a pipeline stage's ranks under pp), and one all-reduce over the
-    world adds them up."""
+    world; a pipeline stage's ranks under pp; ``splits`` gives, per
+    gradient, the ranks that hold other parts of it outside its own mesh:
+    the ``expert`` extent of an expert weight), and one all-reduce over
+    the world adds them up."""
     import torch.distributed as dist
 
     world = dist.get_world_size()
     dtensor = sys.modules.get("torch.distributed.tensor")
     total = None
-    for g in grads:
-        copies = holders or world
+    for i, g in enumerate(grads):
+        copies = (holders or world) // (splits[i] if splits is not None else 1)
         if dtensor is not None and isinstance(g, dtensor.DTensor):
             for extent, placement in zip(g.device_mesh.mesh.shape, g.placements):
                 if not (placement.is_replicate() or placement.is_partial()):  # Shard, FSDP2's strided shard
@@ -260,6 +263,24 @@ def _global_norm(grads, holders: Optional[int] = None) -> torch.Tensor:
         raise ValueError("no gradients to take the norm of")
     dist.all_reduce(total)
     return total.sqrt()
+
+
+def collect_aux_losses(model: nn.Module, device=None) -> torch.Tensor:
+    """The sum of every auxiliary loss ``model``'s last forward left in its
+    modules (the MoE router terms: each block's ``aux_loss``), as a 0-d
+    fp32 tensor; zero for a model that has none (on ``device``, else its
+    parameters'). THE one collecting rule, as JAX's ``collect_aux_losses``:
+    the train steps and the tests all read the terms through it."""
+    aux = None
+    for mod in model.modules():
+        term = getattr(mod, "aux_loss", None)
+        if isinstance(term, torch.Tensor):
+            aux = term.float() if aux is None else aux + term.float()
+    if aux is None:
+        if device is None:
+            device = next(model.parameters()).device
+        aux = torch.zeros((), dtype=torch.float32, device=device)
+    return aux
 
 
 def classification_loss_fn(logits: torch.Tensor, batch: Batch) -> torch.Tensor:
@@ -403,17 +424,40 @@ class Trainer:
         self._overlap_memo = None
         self._overlap_layout = None
         self._pp_parts = None
+        if is_moe(self.model):
+            self._check_moe()
         if self.mesh is not None and self.pp == 1:  # under pp, make_state raises JAX's refusals
             cfg = getattr(self.model, "cfg", None)
             if cfg is None or not hasattr(self.model, "layers"):
                 raise NotImplementedError(
-                    f"a mesh lays out the Decoder; {type(self.model).__name__} on a mesh comes with "
-                    "its model family (ROADMAP queue 1 item 8)"
+                    f"a mesh lays out the Decoder and the MoEDecoder; {type(self.model).__name__} on a mesh "
+                    "comes with its model family (ROADMAP queue 1 item 8)"
                 )
             # a head count tp does not divide raises here, before anything
             # is built, on any device
             shd.check_tensor_parallel(cfg, self._mesh_shape.get(AXIS_TENSOR, 1))
         self._layout_memo = None
+
+    def _check_moe(self) -> None:
+        """Refuse what an MoE model cannot train on yet: a sequence split
+        (a ring, or ``seq``), ``tensor`` or pipeline stages (ROADMAP queue 1
+        item 8b), and an ``expert`` extent that does not divide the
+        experts."""
+        shape = self._mesh_shape
+        unported = [f"{a}={shape[a]}" for a in (AXIS_SEQ, AXIS_TENSOR, AXIS_STAGE) if shape.get(a, 1) > 1]
+        if self.ring is not None:
+            unported.append(f"a {type(self.ring).__name__}")
+        if unported:
+            raise NotImplementedError(
+                f"the MoEDecoder under {', '.join(unported)} (MoE with sequence, tensor or pipeline "
+                "parallelism) is ROADMAP queue 1 item 8b, not ported yet"
+            )
+        ep = shape.get(AXIS_EXPERT, 1)
+        if self.model.cfg.n_experts % ep:
+            raise ValueError(
+                f"n_experts={self.model.cfg.n_experts} not divisible by ep={ep}: the expert axis would "
+                "silently replicate instead of sharding the expert FFNs"
+            )
 
     @property
     def _group_ring(self) -> Optional[ProcessGroupRing]:
@@ -767,7 +811,8 @@ class Trainer:
         shapes alone (nothing is allocated): ``{name: per dim, the mesh
         axes that split it}``; the optimizer's moments follow their
         parameter. FSDP2 splits dim 0 over ``fsdp`` (``data`` replicates),
-        tensor parallelism the dim the port's rules map to ``tensor``. Under
+        tensor parallelism the dim the port's rules map to ``tensor``, and an
+        MoE expert weight's expert dim lies over ``expert`` first. Under
         pp: the parameters of this rank's stage, over ``tensor`` only."""
         if self._layout_memo is not None:
             return self._layout_memo
@@ -777,9 +822,12 @@ class Trainer:
         if self.pp > 1:  # this rank's stage, replicated over data and fsdp as in JAX
             fsdp = False
             named = self._pipeline_parts().make_stage(self.mesh.get_local_rank(AXIS_STAGE), "meta").named_parameters()
+        ep = shape.get(AXIS_EXPERT, 1) if is_moe(self.model) else 1
         out = {}
         for name, p in named:
             dims = [[] for _ in range(p.dim())]
+            if ep > 1 and shd.logical_axes(name)[0] == "expert":
+                dims[0].append(AXIS_EXPERT)  # this rank's experts, then FSDP2's dim 0 of them
             if fsdp and dims:
                 dims[0].append(AXIS_FSDP)
             if shape.get(AXIS_TENSOR, 1) > 1:
@@ -817,6 +865,10 @@ class Trainer:
         params = get_model_state_dict(state.model, options=full)
         optim = get_optimizer_state_dict(state.model, state.optimizer, options=full)
         mine = self.make_state(0, sample_batch, params=params)
+        for name, (_, place) in expert_params(mine.model).items():  # this rank's experts' moments
+            n = mine.model.cfg.n_experts // place.ep
+            optim["state"][name] = {k: v[place.rank * n:(place.rank + 1) * n] if v.dim() else v
+                                    for k, v in optim["state"][name].items()}
         if mine.layout is None:
             set_optimizer_state_dict(mine.model, mine.optimizer, optim, options=full)
         else:  # the dense optimizer state in the checkpoint's form, converted to this layout
@@ -881,23 +933,35 @@ class Trainer:
         logits = state.model(*_model_inputs(batch))
         term, loss = self._losses(logits, batch)
         del logits
-        # the dense decoder sows no auxiliary losses (MoE router terms)
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-        total = loss + aux
-        state.optimizer.zero_grad(set_to_none=True)
         layout = state.layout
+        # the router terms of an MoE model (zero for the Decoder): on a mesh
+        # its blocks take their statistics over the global batch already,
+        # so every rank holds the global term; the bucketed and ZeRO-1 steps
+        # see this rank's rows alone and average the ranks' terms, as JAX's
+        aux = collect_aux_losses(state.model, loss.device)
+        aux_term = aux
+        if layout is not None and is_moe(state.model):
+            aux_term = aux / self._dpf
+            aux = self._batch_sum(aux.detach()) / self._dpf
+        total = loss + aux.detach()
+        state.optimizer.zero_grad(set_to_none=True)
         if layout is not None:
             layout.grads.begin()
-        (term + aux).backward()
+        (term + aux_term).backward()
+        aux = aux.detach()
         if layout is not None:
             gnorm = layout.update(state.optimizer)
         else:
-            grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+            params = [p for p in state.model.parameters() if p.grad is not None]
+            grads = [p.grad for p in params]
             split = self._split
             if split is not None:  # the global gradient is the sum of the chunks'
                 with torch.no_grad():
                     _all_reduce_sum([_local(g) for g in grads], split[2])
-            gnorm = _global_norm(grads) if self.mesh is not None else torch.nn.utils.get_total_norm(grads)
+            if self.mesh is not None:
+                gnorm = _global_norm(grads, splits=[expert_extent(p) for p in params])
+            else:
+                gnorm = torch.nn.utils.get_total_norm(grads)
             state.optimizer.step()
         metrics = {
             "loss": loss.detach(),

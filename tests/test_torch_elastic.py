@@ -151,11 +151,16 @@ def elastic_train(model, dataset, hparams, ctx, trial_dir):
 
 
 def _segments(log_dir):
-    """Every entry's segment, per process (in entry order)."""
+    """Every entry's segment, per process (in entry order). A process the
+    driver reaped between opening its log and writing its line (a group
+    torn down after a death) left an empty file or a line without its
+    newline: nothing of it was recorded, so it is skipped."""
     out = []
     for path in sorted(glob.glob(os.path.join(str(log_dir), "*.jsonl"))):
         with open(path) as f:
-            out.append([json.loads(line) for line in f])
+            entries = [json.loads(line) for line in f if line.endswith("\n")]
+        if entries:
+            out.append(entries)
     return out
 
 

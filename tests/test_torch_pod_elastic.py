@@ -40,6 +40,11 @@ from maggy_tpu_torch import experiment
 from maggy_tpu_torch.config import DistributedConfig
 
 ELASTIC_STEPS, EVERY, KILL_AT = 8, 2, 5
+# the launcher's wait for a whole elastic run: the cut run starts two
+# generations of two processes (imports, the gloo group, make_state, the
+# restore), and on a loaded host one generation alone took 104 s of
+# test_torch_pod's 120 s (44 busy processes on 8 cores), the cut run past it
+ELASTIC_LAUNCH_TIMEOUT_S = 360
 
 
 def test_launcher_elastic_generation_restart(tmp_path):
@@ -50,8 +55,8 @@ def test_launcher_elastic_generation_restart(tmp_path):
         return dict(data=data, lr=LR, steps=ELASTIC_STEPS, ckpt=str(tmp_path / f"{name}_ckpt"), every=EVERY,
                     trace=str(tmp_path / f"{name}_trace"), params_out=str(tmp_path / f"{name}.pkl"), kill=kill)
 
-    _, whole = launch(tmp_path, "whole", hp("whole"))
-    proc, cut = launch(tmp_path, "cut", hp("cut", kill=KILL_AT), "--elastic", "1")
+    _, whole = launch(tmp_path, "whole", hp("whole"), timeout=ELASTIC_LAUNCH_TIMEOUT_S)
+    proc, cut = launch(tmp_path, "cut", hp("cut", kill=KILL_AT), "--elastic", "1", timeout=ELASTIC_LAUNCH_TIMEOUT_S)
     assert "restarting generation 0 -> 1" in proc.stderr, proc.stderr[-2000:]
     # generation 0 started cold, generation 1 resumed from the step-4 checkpoint
     for rank in (0, 1):

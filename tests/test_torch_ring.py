@@ -200,11 +200,11 @@ def test_decoder_through_local_ring_matches_dense():
 
 @pytest.mark.parametrize("preset", ["dp", "fsdp", "tp", "sp", "pp", "2d", "ep"])
 def test_sharding_spec_matches_jax(preset):
-    """The presets the port runs (dp, fsdp, tp, 2d, sp, pp) are the JAX
-    package's; a preset that turns on an axis the port does not run yet is
-    refused where JAX builds it, naming its item (ep 8)."""
+    """The presets the port runs (dp, fsdp, tp, 2d, sp, pp, ep) are the JAX
+    package's; a preset that turned on an axis the port did not run yet was
+    refused where JAX builds it, naming its item (none is left)."""
     assert MESH_AXES == J_MESH_AXES
-    refused = {"ep": "queue 1 item 8"}
+    refused = {}
     for n in (1, 4, 8):
         ref = JShardingSpec.preset(preset, n)
         if preset not in refused or n == 1:

@@ -49,7 +49,7 @@ Phases, each printing one line:
             dispatch and combine einsums, projections, attention, AdamW,
             loss); budget 90 s.
     dist.moe  with two or more cards, ``lagom(train_fn,
-            DistributedConfig(sharding=ShardingSpec(ep=...)))``, one NCCL
+            DistributedConfig(sharding=ShardingSpec(...)))``, one NCCL
             rank a card, moe.train's weights, data and steps: ep=2 on two;
             ep=4 (2 experts a rank), fsdp=2 and ep=2 x fsdp=2 (4 a rank) on
             four. Expert parallelism alone is held to moe.train's rank at
@@ -58,7 +58,25 @@ Phases, each printing one line:
             yardstick (the same split, no expert axis). Experts a rank,
             exact launches, the trainer's grad norm against the gathered
             gradients, step ÷ moe.train's, peak; budget 150 s. With one
-            card ``"ran": false``.
+            card ``"ran": false``. Its specs and dist.moe.mesh's run as one
+            study a rank count (their ranks run the specs in turn; a
+            study's first spec is its ``DistributedConfig(sharding=)``:
+            ep=2 on two cards, pp=2 and pp=2 x ep=2 on four), whose seconds
+            both phases hold to their budgets.
+    dist.moe.mesh  the same under tensor and pipeline parallelism, alone
+            and with the expert axis, 3 steps after the warm-up: tp=2 and
+            pp=2 (2 microbatches of one row) on two cards; ep=2 x tp=2,
+            pp=2 x ep=2 and pp=2 x tp=2 on four; pp=2 x tp=2 x ep=2 on
+            eight (else ``"ran": false`` for it). Every step held to
+            moe.train's rank (dist.mesh's loss limit; the warm-up's grad
+            norm too, its aux loss within JAX's 1e-3), every step of a spec
+            with ``expert`` to its yardstick without it (ep=2 x tp=2 to
+            tp=2, pp=2 x ep=2 to pp=2); each step's share of tokens routed
+            to other experts than on one card; a planted fault (tp=2, the
+            expert weights left out of the optimizer) must break the loss
+            limit; exact launches per rank (16 / 4 heads a rank under tp; a
+            stage's layers per microbatch under pp), experts a rank, step ÷
+            moe.train's, peak; budget 180 s. With one card ``"ran": false``.
 5. ring.kernels  each ring step kernel (forward, dQ, dK/dV) against its plain
             version at one rank's shapes of the ring below (B=1, C=2048,
             H=32, Kh=8, D=128): the diagonal step, a past step, the
@@ -329,7 +347,7 @@ Phases, each printing one line:
             4 and backward 4 + 4 under each; each policy's time and peak.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches: those of
-``train``, ``moe.model``, ``moe.train``, rank 0 of ``dist.moe``, ``ring.train``, ``lagom.ablation``'s Decoder study,
+``train``, ``moe.model``, ``moe.train``, rank 0 of ``dist.moe`` and of each ``dist.moe.mesh`` spec, ``ring.train``, ``lagom.ablation``'s Decoder study,
 ``dist.lagom``'s rank, rank 0 of ``dist.mesh``, ``dist.seq``, ``dist.zero``
 and ``dist.pipe`` (its single-stage part too), every rank of
 ``pod.elastic``, every trial of ``pod.hpo``, every rank of both
@@ -569,6 +587,15 @@ MOE_PEAK_LIMIT_GIB = 75.0
 MOE_MODEL_BUDGET_S = 30
 MOE_TRAIN_BUDGET_S = 90
 DIST_MOE_BUDGET_S = 150
+# dist.moe.mesh: the MoE decoder under tensor and pipeline parallelism, with
+# and without the expert axis; pp specs run MOE_MESH_MICRO microbatches (one
+# of moe.train's two rows each)
+DIST_MOE_MESH_BUDGET_S = 180
+MOE_MESH_MICRO = 2
+MOE_MESH_STEPS = 3
+# JAX's bound on a pipelined MoE step's aux loss against the whole batch's:
+# a pipeline's router statistics are each microbatch's
+TOL_PIPE_AUX_ABS = 1e-3
 # train.remat: each setting in turn, remat=False first (the reference)
 REMAT_ORDER = ((False, "nothing"), (True, "nothing"), (True, "dots"), (True, "dots_attn"))
 # the whole run must end inside 1200 s: one still going at RUN_DEADLINE_S
@@ -3176,16 +3203,103 @@ def grad_norms_by_group(model, state=None) -> dict:
 
         from maggy_tpu_torch.parallel.mesh import stage_group
 
-        keys = ("norm", "embedding", "attn", "mlp", "lm_head")
+        keys = ("norm", "embedding", "attn", "mlp", "moe", "lm_head")
         p0 = next(model.parameters())
         t = torch.tensor([sums.get(k, 0.0) for k in keys], dtype=torch.float64,
                          device=getattr(p0, "to_local", lambda: p0)().device)
         dist.all_reduce(t, group=stage_group(pipe.mesh))
-        sums = dict(zip(keys, t.tolist()))
+        # the model's own groups: a Decoder has no MoE block, an MoEDecoder no MLP
+        sums = {k: v for k, v in zip(keys, t.tolist()) if v > 0}
     return {k: math.sqrt(v) for k, v in sums.items()}
 
 
-def mesh_steps(ctx, model, steps: int, seq: int, reporter=None, rows_repeat: int = 1, **trainer_kw) -> dict:
+def record_routes(model):
+    """Forward hooks on the router of every MoE block of ``model`` (a model
+    or a pipeline stage) that keep each call's top-k experts of every token
+    (sorted, uint8 ``[tokens, k]``, on the device) by layer index. Returns
+    ``(hooks, records)``; the hooks only read."""
+    import torch
+
+    from maggy_tpu_torch.models.moe import top_k_lowest_first
+    from maggy_tpu_torch.parallel.expert import moe_blocks
+
+    records, hooks = {}, []
+    for name, block in moe_blocks(model):
+        layer, k = int(name.split(".")[-2]), block.cfg.top_k
+
+        def hook(_mod, _args, out, layer=layer, k=k):
+            out = out.to_local() if hasattr(out, "to_local") else out
+            with torch.no_grad():
+                idx = top_k_lowest_first(torch.softmax(out.detach().float(), -1), k)[1].sort(-1).values
+            records.setdefault(layer, []).append(idx.reshape(-1, k).to(torch.uint8))
+
+        hooks.append(block.router.register_forward_hook(hook))
+    return hooks, records
+
+
+def encode_routes(records: dict) -> dict:
+    """:func:`record_routes`' records as ``{layer: base64 of uint8 [calls x
+    tokens, k]}``, each forward once: a call equal to one of the layer's
+    last four is the same forward run again (remat's recompute, a pipeline
+    stage's forward at its backward tick: at most two microbatches of a
+    step apart); two forwards of different batches never route every token
+    alike."""
+    import base64
+
+    import torch
+
+    out = {}
+    for layer, recs in records.items():
+        unique = []
+        for r in recs:
+            if not any(r.shape == u.shape and torch.equal(r, u) for u in unique[-4:]):
+                unique.append(r)
+        out[str(layer)] = base64.b64encode(torch.cat(unique).cpu().numpy().tobytes()).decode()
+    return out
+
+
+def decode_routes(encoded: dict, k: int, tokens: int) -> dict:
+    """``{layer: uint8 [steps, tokens, k]}`` from :func:`encode_routes`,
+    ``tokens`` a step (a pipeline's microbatches in order: the batch's
+    rows); a layer whose calls do not make whole steps is left out."""
+    import base64
+
+    import numpy as np
+
+    out = {}
+    for layer, text in encoded.items():
+        flat = np.frombuffer(base64.b64decode(text), dtype=np.uint8).reshape(-1, k)
+        if len(flat) % tokens == 0:
+            out[int(layer)] = flat.reshape(-1, tokens, k)
+    return out
+
+
+def routed_differently(routes: dict, ref: dict) -> list:
+    """The share of tokens routed to other experts than in ``ref`` in any
+    layer, a step (as moe.model counts a flip), over the steps both hold;
+    ``[]`` when a layer of ``ref`` is missing."""
+    import numpy as np
+
+    if not ref or set(ref) - set(routes):
+        return []
+    n = min(min(len(v) for v in routes.values()), min(len(v) for v in ref.values()))
+    flips = np.zeros((n, next(iter(ref.values())).shape[1]), dtype=bool)
+    for layer, want in ref.items():
+        flips |= (routes[layer][:n] != want[:n]).any(-1)
+    return [float(f.mean()) for f in flips]
+
+
+def skip_expert_weights(optimizer):
+    """A planted fault: ``optimizer`` over every parameter but the MoE
+    expert weights, which then never move (an optimizer step that misses
+    the sharded expert weights)."""
+    from maggy_tpu_torch.parallel.expert import EXPERT_ATTR
+
+    return lambda params: optimizer([p for p in params if not hasattr(p, EXPERT_ATTR)])
+
+
+def mesh_steps(ctx, model, steps: int, seq: int, reporter=None, rows_repeat: int = 1, optimizer=None,
+               routes: bool = False, **trainer_kw) -> dict:
     """The ``train`` phase's steps on a rank of ``ctx``'s mesh: its weights
     (seed 0) and batches, a one-step warm-up fit, then ``steps`` fit steps
     (prefetch 2, every loss broadcast). Each rank passes the global batch;
@@ -3194,12 +3308,13 @@ def mesh_steps(ctx, model, steps: int, seq: int, reporter=None, rows_repeat: int
     mesh of more batch ranks than rows gets a row each: the token-weighted
     mean over repeated rows, and its gradient, are the B rows' own.
     ``trainer_kw`` goes to ``ctx.trainer`` (``zero_stage``, ``bucket_mb``,
-    ``n_microbatches``).
+    ``n_microbatches``), ``optimizer`` (default ``adamw(1e-4)``) too.
     Returns the losses, the grad norms, the warm-up step's norm of each
     gradient group (:func:`grad_norms_by_group`) and how far the trainer's
     grad norm lies from theirs, the mean step, the peak memory, the
     optimizer's bytes on this rank, the overlap mode, and the flash and
-    ring launches of both fits."""
+    ring launches of both fits; with ``routes``, every step's routing of
+    an MoE model's layers on this rank (:func:`encode_routes`)."""
     import torch
 
     from maggy_tpu_torch.ops import flash
@@ -3209,11 +3324,12 @@ def mesh_steps(ctx, model, steps: int, seq: int, reporter=None, rows_repeat: int
 
     import numpy as np
 
-    trainer = ctx.trainer(model, adamw(1e-4), **trainer_kw)
+    trainer = ctx.trainer(model, optimizer or adamw(1e-4), **trainer_kw)
     data = synthetic_lm_batches(model.cfg.vocab_size, B, seq, seed=0)
     if rows_repeat > 1:
         data = ({k: np.concatenate([v] * rows_repeat) for k, v in batch.items()} for batch in data)
     state = trainer.make_state(0, next(data))
+    hooks, records = record_routes(state.model) if routes else ([], {})
     flash.reset_launches()
     rf.reset_launches()
     state, warm = trainer.fit(state, data, 1)
@@ -3232,15 +3348,20 @@ def mesh_steps(ctx, model, steps: int, seq: int, reporter=None, rows_repeat: int
 
     state, metrics = trainer.fit(state, data, steps, reporter=Record(), report_every=1, metrics_window=0)
     torch.cuda.synchronize()
+    pipe = {}
+    for hook in hooks:
+        hook.remove()
+    if routes:
+        pipe["routes"] = encode_routes(records)
     on_card = all(getattr(p, "to_local", lambda: p)().device == ctx.device for p in state.model.parameters())
-    pipe = {} if state.pipeline is None else dict(stage=state.pipeline.stage, n_micro=trainer._n_micro())
+    pipe.update({} if state.pipeline is None else dict(stage=state.pipeline.stage, n_micro=trainer._n_micro()))
     from maggy_tpu_torch.parallel.expert import moe_blocks
 
     block = next((b for _, b in moe_blocks(state.model)), None)
     if block is not None:  # the experts this rank holds
         pipe["experts"] = int(block.w_gate.shape[0])
     return dict(metric=metrics["loss"], losses=[warm["loss"]] + losses, first_grad_norm=warm["grad_norm"],
-                params_on_card=on_card, group_grad_norms=groups,
+                first_aux_loss=warm["aux_loss"], params_on_card=on_card, group_grad_norms=groups,
                 grad_norm_count_rel=_rel(warm["grad_norm"], whole),
                 last_grad_norm=metrics["grad_norm"], step_ms=1e3 / metrics["steps_per_sec"],
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, state_gib=state_gib,
@@ -4419,7 +4540,8 @@ def reference_steps(torch, cfg, rows: int, seq: int, steps: int, device: str = "
 def _elastic_run(torch, cfg, chaos_spec: str, hparams: dict, budget_s: float, **config_kw):
     """``lagom(dist_elastic_train, DistributedConfig(elastic=True, ...))``
     with ``chaos_spec`` in the ranks' environment, in a temporary root:
-    the result, each process's entries, the exported counters and gauges,
+    the result, each process's entries, the exported counters (summed over
+    the processes) and the driver's gauges,
     the driver's and executors' log lines about the membership, the
     phase's seconds. The disk must hold two checkpoints."""
     import glob
@@ -4455,7 +4577,11 @@ def _elastic_run(torch, cfg, chaos_spec: str, hparams: dict, budget_s: float, **
                     if rec.get("kind") == "snapshot":
                         for k, v in (rec.get("counters") or {}).items():
                             counters[k] = counters.get(k, 0) + v
-                        gauges.update(rec.get("gauges") or {})
+                        # the gauges of the membership's owner, the driver: a
+                        # worker's is its own last view (a parked slice's stays
+                        # at the epoch it left), whichever file glob lists last
+                        if os.path.basename(path) == "driver.jsonl":
+                            gauges.update(rec.get("gauges") or {})
         log = []
         for path in sorted(glob.glob(os.path.join(exp_dir, "*.log"))):
             with open(path) as f:
@@ -4833,6 +4959,7 @@ def phase_moe_train(torch, card: str, profile: bool, seq: int = S, steps: int = 
     trainer = Trainer(MoEDecoder(cfg, device="meta"), adamw(1e-4), device=device)
     data = synthetic_lm_batches(cfg.vocab_size, B, seq, seed=0)
     state = trainer.make_state(0, next(data))
+    hooks, records = record_routes(state.model)  # every step's routing, for dist.moe.mesh
     state, warm = trainer.fit(state, data, 1)
     groups = grad_norms_by_group(state.model)  # the warm-up step's gradients, still held
     torch.cuda.synchronize()
@@ -4848,6 +4975,9 @@ def phase_moe_train(torch, card: str, profile: bool, seq: int = S, steps: int = 
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = dict(flash.LAUNCHES)
+    for hook in hooks:
+        hook.remove()
+    routes = decode_routes(encode_routes(records), cfg.top_k, B * seq)
     phase_s = time.perf_counter() - t0
     expected = {k: v * steps for k, v in moe_launches_per_step(cfg.n_layers).items()}
     step_ms = 1e3 / metrics["steps_per_sec"]
@@ -4870,8 +5000,8 @@ def phase_moe_train(torch, card: str, profile: bool, seq: int = S, steps: int = 
         raise SystemExit(f"moe.train failed: {[k for k, v in checks.items() if not v]}")
     if profile:
         profile_moe_steps(torch, trainer, state, data, card, step_ms, cfg.d_ff)
-    single = dict(losses=[warm["loss"]] + losses, first_grad_norm=warm["grad_norm"],
-                  last_grad_norm=metrics["grad_norm"], group_grad_norms=groups, step_ms=step_ms)
+    single = dict(losses=[warm["loss"]] + losses, first_grad_norm=warm["grad_norm"], first_aux_loss=warm["aux_loss"],
+                  last_grad_norm=metrics["grad_norm"], group_grad_norms=groups, step_ms=step_ms, routes=routes)
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4923,26 +5053,77 @@ def profile_moe_steps(torch, trainer, state, data, card: str, step_ms: float, d_
          by_kind_ms=kinds, matmul_by_operator_ms=matmuls, card=card)
 
 
-def dist_moe_train(model, hparams, reporter, ctx):
-    """dist.moe's train_fn, run by each rank: ``moe.train``'s steps under the
-    rank's mesh."""
-    return mesh_steps(ctx, model, hparams["steps"], hparams["seq"], reporter)
+def moe_study_groups(cards: int) -> list:
+    """dist.moe's and dist.moe.mesh's specs as one ``lagom`` study a rank
+    count (a study's spawn, NCCL set-up and first step cost 15-40 s),
+    each spec ``{key, kw (its ShardingSpec), steps, phase}`` (phase
+    ``"fault"`` for the planted fault; every spec but dist.moe's records
+    its routing). A study's first spec is its ``DistributedConfig(sharding=)``:
+    ep=2 on two cards; pp=2 and pp=2 x ep=2 on four. The planted fault
+    (tp=2, the expert weights left out of the optimizer) runs beside tp=2."""
+
+    def moe(key, **kw):
+        return dict(key=key, kw=kw, steps=TRAIN_STEPS, phase="dist.moe")
+
+    def mesh(key, fault=False, **kw):
+        return dict(key=key, kw=kw, steps=MOE_MESH_STEPS, phase="fault" if fault else "dist.moe.mesh")
+
+    if cards < 2:
+        return []
+    fault = mesh("tp2_fault", fault=True, tp=2)
+    if cards < 4:
+        return [[moe("ep2", ep=2), mesh("tp2", tp=2), mesh("pp2", pp=2), fault]]
+    groups = [[mesh("pp2", pp=2), mesh("tp2", tp=2), moe("fsdp2", fsdp=2), fault],
+              [mesh("pp2_ep2", pp=2, ep=2), moe("ep4", ep=4), moe("ep2_fsdp2", ep=2, fsdp=2),
+               mesh("ep2_tp2", ep=2, tp=2), mesh("pp2_tp2", pp=2, tp=2)]]
+    if cards >= 8:
+        groups.append([mesh("pp2_tp2_ep2", pp=2, tp=2, ep=2)])
+    return groups
 
 
-def phase_dist_moe(torch, card: str, single: dict, seq: int = S, steps: int = TRAIN_STEPS) -> dict:
-    """Expert parallelism across cards under ``lagom(train_fn,
-    DistributedConfig(sharding=ShardingSpec(ep=...)))``, one spawned NCCL
-    rank a card, ``moe.train``'s weights, data and steps: ep=2 on two
-    cards; ep=4, ep=2 x fsdp=2 and, as the latter's yardstick, fsdp=2 alone
-    (the same batch split, no expert axis) on four. A spec with no batch
-    split (ep alone) is held to ``moe.train``'s single rank under
-    dist.mesh's limits at every step. Under a batch split the sums run in
-    another order, and a router near a bf16 tie sends a token to another
-    expert, which the later steps amplify: its warm-up step is held to the
-    single rank (loss, gradient groups, the trainer's count), and every
-    step of ep=2 x fsdp=2 to the fsdp=2 yardstick's under dist.mesh's
-    limits. Returns rank 0's flash launches, summed over the specs."""
+def dist_moe_study_train(model, hparams, reporter, ctx):
+    """dist.moe's and dist.moe.mesh's train_fn, run by each rank:
+    ``moe.train``'s steps under each of ``hparams["specs"]`` in turn, over
+    the study's ranks: the first spec is the study's own (its context),
+    each later one a ``TrainContext.create`` over the same ranks, a fresh
+    meta model each (``n_microbatches`` under pp; the planted fault's
+    optimizer skips the expert weights). Returns ``{"metric", "specs":
+    {key: mesh_steps' figures, the spec's seconds and what the card held
+    before it}}``: a spec's peak counts what an earlier spec left alive."""
     import gc
+
+    import torch
+
+    from maggy_tpu_torch.parallel import ShardingSpec
+    from maggy_tpu_torch.train import TrainContext, adamw
+
+    out = {}
+    for i, spec in enumerate(hparams["specs"]):
+        key, kw = spec["key"], spec["kw"]
+        t0 = time.perf_counter()
+        held = torch.cuda.memory_allocated() / 2**30  # what the specs before left on the card
+        spec_ctx = ctx if i == 0 else TrainContext.create(ShardingSpec(**kw), device=ctx.device)
+        trainer_kw = dict(n_microbatches=MOE_MESH_MICRO) if kw.get("pp", 1) > 1 else {}
+        if spec["phase"] == "fault":
+            trainer_kw["optimizer"] = skip_expert_weights(adamw(1e-4))
+        out[key] = mesh_steps(spec_ctx, model if i == 0 else type(model)(model.cfg, device="meta"), spec["steps"],
+                              hparams["seq"], reporter if i == 0 else None, routes=spec["phase"] != "dist.moe",
+                              **trainer_kw)
+        out[key].update(spec_s=time.perf_counter() - t0, held_before_gib=held)
+        if i == 0:  # the study's module stays referenced: its gradients at least go
+            for p in model.parameters():
+                p.grad = None
+        del spec_ctx
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"metric": out[hparams["specs"][0]["key"]]["metric"], "specs": out}
+
+
+def lagom_ranks(train_fn, cfg, spec, hparams: dict, left: float) -> list:
+    """``lagom(train_fn, DistributedConfig(sharding=spec))`` over an
+    ``MoEDecoder(cfg)``, one spawned NCCL rank a card, its logs in a
+    temporary root (never the repo), every rank inside ``left`` seconds;
+    returns each rank's output, by rank."""
     import tempfile
     from pathlib import Path
 
@@ -4951,40 +5132,82 @@ def phase_dist_moe(torch, card: str, single: dict, seq: int = S, steps: int = TR
     from maggy_tpu_torch.core import env as env_mod
     from maggy_tpu_torch.core.env.base import BaseEnv
     from maggy_tpu_torch.models import MoEDecoder
+
+    with tempfile.TemporaryDirectory(prefix="dist_moe_") as root:
+        env_mod.set_instance(BaseEnv(root))
+        try:
+            experiment.lagom(train_fn, DistributedConfig(
+                module=MoEDecoder(cfg, device="meta"), hparams=hparams, sharding=spec,
+                num_executors=spec.num_devices, hb_interval=LAGOM_HB, worker_timeout=left,
+            ))
+            outs = sorted(Path(root).rglob("worker_*/.outputs.json"), key=lambda p: int(p.parent.name[7:]))
+            return [json.loads(p.read_text()) for p in outs]
+        finally:
+            env_mod.set_instance(None)
+
+
+def moe_studies(torch, seq: int = S) -> dict:
+    """The studies of :func:`moe_study_groups` on this host's cards, in
+    turn, inside the smaller of dist.moe's and dist.moe.mesh's budgets:
+    each spec's outputs by rank, the studies' seconds, and the whole."""
+    import gc
+
     from maggy_tpu_torch.parallel import ShardingSpec
 
+    groups = moe_study_groups(torch.cuda.device_count())
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = moe_config()
+    budget = min(DIST_MOE_BUDGET_S, DIST_MOE_MESH_BUDGET_S)
+    t0 = time.perf_counter()
+    results, study_s = {}, []
+    for group in groups:
+        left = max(1.0, budget - (time.perf_counter() - t0))
+        t_study = time.perf_counter()
+        outs = lagom_ranks(dist_moe_study_train, cfg, ShardingSpec(**group[0]["kw"]), dict(seq=seq, specs=group),
+                           left)
+        study_s.append(time.perf_counter() - t_study)
+        print(f"chip_smoke: MoE study {[s['key'] for s in group]} done at {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+        for spec in group:
+            results[spec["key"]] = [o["specs"][spec["key"]] for o in outs]
+    return dict(cfg=cfg, seq=seq, specs=[s for g in groups for s in g], results=results, study_s=study_s,
+                phase_s=time.perf_counter() - t0, leads=[g[0]["key"] for g in groups])
+
+
+def phase_dist_moe(torch, card: str, single: dict, studies: dict) -> dict:
+    """Expert parallelism across cards under ``lagom(train_fn,
+    DistributedConfig(sharding=ShardingSpec(...)))``, one spawned NCCL
+    rank a card, ``moe.train``'s weights, data and steps: ep=2 on two
+    cards; ep=4, ep=2 x fsdp=2 and, as the latter's yardstick, fsdp=2 alone
+    (the same batch split, no expert axis) on four; run in the studies of
+    :func:`moe_studies`, beside dist.moe.mesh's specs (a study's first spec
+    reaches the ranks through the config, the others through
+    ``TrainContext.create``). A spec with no batch split (ep alone) is held
+    to ``moe.train``'s single rank under dist.mesh's limits at every step.
+    Under a batch split the sums run in another order, and a router near a
+    bf16 tie sends a token to another expert, which the later steps
+    amplify: its warm-up step is held to the single rank (loss, gradient
+    groups, the trainer's count), and every step of ep=2 x fsdp=2 to the
+    fsdp=2 yardstick's under dist.mesh's limits. The studies' seconds are
+    held to this phase's budget. Returns rank 0's flash launches, summed
+    over the specs."""
     cards = torch.cuda.device_count()
     if cards < 2:
         emit("dist.moe", ok=True, ran=False, cards=cards, card=card)
         return {}
-    specs = [("ep2", dict(ep=2))] if cards < 4 else [("ep4", dict(ep=4)), ("fsdp2", dict(fsdp=2)),
-                                                      ("ep2_fsdp2", dict(ep=2, fsdp=2))]
+    specs = [s for s in studies["specs"] if s["phase"] == "dist.moe"]
+    results, cfg = studies["results"], studies["cfg"]
     yardstick = {"ep2_fsdp2": "fsdp2"}
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg = moe_config()
-    t0 = time.perf_counter()
-    results, launches = {}, {}
-    for key, kw in specs:
-        spec = ShardingSpec(**kw)
-        left = max(1.0, DIST_MOE_BUDGET_S - (time.perf_counter() - t0))
-        with tempfile.TemporaryDirectory(prefix="dist_moe_") as root:
-            env_mod.set_instance(BaseEnv(root))  # logs in a temporary root, never the repo
-            try:
-                experiment.lagom(dist_moe_train, DistributedConfig(
-                    module=MoEDecoder(cfg, device="meta"), hparams=dict(steps=steps, seq=seq), sharding=spec,
-                    num_executors=spec.num_devices, hb_interval=LAGOM_HB, worker_timeout=left,
-                ))
-                outs = sorted(Path(root).rglob("worker_*/.outputs.json"), key=lambda p: int(p.parent.name[7:]))
-                results[key] = [json.loads(p.read_text()) for p in outs]
-            finally:
-                env_mod.set_instance(None)
-        for name, count in results[key][0]["launches"].items():
+    launches = {}
+    for spec in specs:
+        for name, count in results[spec["key"]][0]["launches"].items():
             launches[name] = launches.get(name, 0) + count
-    phase_s = time.perf_counter() - t0
-    expected = {k: (1 + steps) * v for k, v in moe_launches_per_step(cfg.n_layers).items()}
+    phase_s = studies["phase_s"]
+    expected = {k: (1 + TRAIN_STEPS) * v for k, v in moe_launches_per_step(cfg.n_layers).items()}
     rows = []
-    for key, kw in specs:
+    for spec in specs:
+        key, kw = spec["key"], spec["kw"]
         for rank, res in enumerate(results[key]):
             loss_rel = [_rel(g, w) for g, w in zip(res["losses"], single["losses"])]
             norm_rel = dict(first=_rel(res["first_grad_norm"], single["first_grad_norm"]),
@@ -5004,23 +5227,143 @@ def phase_dist_moe(torch, card: str, single: dict, seq: int = S, steps: int = TR
                              loss_rel_to_yardstick=ref_loss_rel, grad_norm_rel_to_yardstick=ref_norm_rel,
                              group_grad_norm_rel=group_rel, grad_norm_count_rel=res["grad_norm_count_rel"],
                              step_ms=res["step_ms"], ratio_to_single=res["step_ms"] / single["step_ms"],
-                             peak_gib=res["peak_gib"], launches=res["launches"],
-                             ok=held and len(res["losses"]) == steps + 1
+                             peak_gib=res["peak_gib"], held_before_gib=res["held_before_gib"],
+                             launches=res["launches"],
+                             ok=held and len(res["losses"]) == TRAIN_STEPS + 1
                              and set(group_rel) == set(single["group_grad_norms"])
                              and max(group_rel.values()) <= TOL_MESH_GROUP_NORM_REL
                              and res["grad_norm_count_rel"] <= TOL_GRAD_NORM_COUNT_REL
                              and res["launches"] == expected
                              and res.get("experts") == cfg.n_experts // kw.get("ep", 1) and res["params_on_card"]))
-    n_ranks = sum(ShardingSpec(**kw).num_devices for _, kw in specs)
+    from maggy_tpu_torch.parallel import ShardingSpec
+
+    n_ranks = sum(ShardingSpec(**s["kw"]).num_devices for s in specs)
     ok = len(rows) == n_ranks and all(r["ok"] for r in rows) and phase_s <= DIST_MOE_BUDGET_S
     emit("dist.moe", ok=ok, ran=True, cards=cards, ranks=rows, yardsticks=yardstick, expected_launches=expected,
          tol=dict(loss_rel=TOL_MESH_LOSS_REL, grad_norm_rel=TOL_MESH_GRAD_NORM_REL,
                   group_grad_norm_rel=TOL_MESH_GROUP_NORM_REL, grad_norm_count_rel=TOL_GRAD_NORM_COUNT_REL),
-         phase_s=phase_s, budget_s=DIST_MOE_BUDGET_S, card=card)
+         studies_s=studies["study_s"], study_leads=studies["leads"], phase_s=phase_s, budget_s=DIST_MOE_BUDGET_S,
+         card=card)
     if not ok:
         raise SystemExit("dist.moe failed: a rank's losses, grad norms (whole, by group, or as its trainer counts "
                          "them), experts or launches disagree with moe.train's single rank or its yardstick, or "
                          "the phase ran past its budget")
+    return launches
+
+
+def spec_routes(cfg, outs: list, tokens: int) -> dict:
+    """A spec's routing of every layer (decoded, ``tokens`` a step), from
+    the first rank holding each layer: every rank of a stage routes the
+    whole batch alike (no batch split in these specs)."""
+    routes = {}
+    for res in outs:
+        for layer, r in decode_routes(res.get("routes") or {}, cfg.top_k, tokens).items():
+            routes.setdefault(layer, r)
+    return routes
+
+
+def phase_dist_moe_mesh(torch, card: str, single: dict, studies: dict) -> dict:
+    """The MoE decoder under tensor and pipeline parallelism across cards,
+    under ``lagom(train_fn, DistributedConfig(sharding=ShardingSpec(...)))``,
+    one spawned NCCL rank a card, ``moe.train``'s weights and data for
+    MOE_MESH_STEPS steps after the warm-up: tp=2 and pp=2 (MOE_MESH_MICRO
+    microbatches, one row each) on two cards; on four also ep=2 x tp=2,
+    pp=2 x ep=2 and pp=2 x tp=2; pp=2 x tp=2 x ep=2 on eight (else
+    reported not run). Run in the studies of :func:`moe_studies`, beside
+    dist.moe's specs: a study's first spec reaches the ranks through
+    ``DistributedConfig(sharding=)`` (pp=2 and pp=2 x ep=2 on four cards),
+    the others through ``TrainContext.create`` over the same ranks.
+    Every step of every spec is held to ``moe.train``'s single rank under
+    dist.mesh's loss limit, its warm-up step's grad norm, gradient groups
+    and the trainer's count too, its aux loss within JAX's 1e-3 (a
+    pipeline's router statistics are each microbatch's); every step of a
+    spec that adds ``expert`` to its yardstick without it (ep=2 x tp=2 to
+    tp=2, pp=2 x ep=2 to pp=2) under the same limits. Beside each step, the
+    share of tokens routed to other experts than on one card (a router near
+    a bf16 tie, after the tensor all-reduce summed in another order, sends
+    a token elsewhere, and the later steps carry it). A planted fault, tp=2
+    with the expert weights left out of the optimizer, must break the loss
+    limit at some step. Exact flash launches per rank (tp: 16 / 4 heads a
+    rank; pp: a stage's layers per microbatch, the forward twice but on
+    the last stage), experts a rank, step ÷ one card's, peak. The studies'
+    seconds are held to this phase's budget. Returns rank 0's launches,
+    summed over the specs."""
+    cards = torch.cuda.device_count()
+    not_run = [dict(spec="pp2_tp2_ep2", ran=False, cards_needed=8)] if cards < 8 else []
+    if cards < 2:
+        emit("dist.moe.mesh", ok=True, ran=False, cards=cards, specs_not_run=not_run, card=card)
+        return {}
+    specs = [s for s in studies["specs"] if s["phase"] == "dist.moe.mesh"]
+    results, cfg = studies["results"], studies["cfg"]
+    yardstick = {"ep2_tp2": "tp2", "pp2_ep2": "pp2", "pp2_tp2_ep2": "pp2_tp2"}
+    launches = {}
+    for spec in specs:
+        for name, count in results[spec["key"]][0]["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    phase_s = studies["phase_s"]
+    spec_s = {s["key"]: results[s["key"]][0]["spec_s"] for s in studies["specs"]}
+    flips = {s["key"]: routed_differently(spec_routes(cfg, results[s["key"]], B * studies["seq"]), single["routes"])
+             for s in studies["specs"] if s["phase"] != "dist.moe"}
+    rows = []
+    for spec in specs:
+        key, kw, steps = spec["key"], spec["kw"], spec["steps"]
+        pp = kw.get("pp", 1)
+        for rank, res in enumerate(results[key]):
+            if pp > 1:
+                per_step = pipe_launches_per_step(cfg.n_layers, pp, res["stage"], res["n_micro"])
+            else:
+                per_step = moe_launches_per_step(cfg.n_layers)
+            expected = {k: (1 + steps) * v for k, v in per_step.items()}
+            loss_rel = [_rel(g, w) for g, w in zip(res["losses"], single["losses"])]
+            warm = dict(loss_rel=loss_rel[0], grad_norm_rel=_rel(res["first_grad_norm"], single["first_grad_norm"]),
+                        aux_abs=abs(res["first_aux_loss"] - single["first_aux_loss"]))
+            group_rel = {k: _rel(v, single["group_grad_norms"][k]) for k, v in res["group_grad_norms"].items()
+                         if k in single["group_grad_norms"]}
+            held = (max(loss_rel) <= TOL_MESH_LOSS_REL and warm["grad_norm_rel"] <= TOL_MESH_GRAD_NORM_REL
+                    and warm["aux_abs"] <= TOL_PIPE_AUX_ABS)
+            ref = results[yardstick[key]][0] if key in yardstick else None
+            ref_loss_rel = ref_norm_rel = None
+            if ref is not None:
+                ref_loss_rel = max(_rel(g, w) for g, w in zip(res["losses"], ref["losses"]))
+                ref_norm_rel = max(_rel(res["first_grad_norm"], ref["first_grad_norm"]),
+                                   _rel(res["last_grad_norm"], ref["last_grad_norm"]))
+                held = (held and len(res["losses"]) == len(ref["losses"]) and ref_loss_rel <= TOL_MESH_LOSS_REL
+                        and ref_norm_rel <= TOL_MESH_GRAD_NORM_REL)
+            rows.append(dict(spec=key, rank=rank, stage=res.get("stage"), mesh=res["mesh"],
+                             experts=res.get("experts"), losses=res["losses"], warm_up_to_single=warm,
+                             loss_rel_to_single=loss_rel, routed_differently=flips[key],
+                             loss_rel_to_yardstick=ref_loss_rel, grad_norm_rel_to_yardstick=ref_norm_rel,
+                             group_grad_norm_rel=group_rel, grad_norm_count_rel=res["grad_norm_count_rel"],
+                             step_ms=res["step_ms"], ratio_to_single=res["step_ms"] / single["step_ms"],
+                             peak_gib=res["peak_gib"], state_gib=res["state_gib"],
+                             held_before_gib=res["held_before_gib"], launches=res["launches"],
+                             expected_launches=expected,
+                             ok=held and len(res["losses"]) == steps + 1 and len(flips[key]) == steps + 1
+                             and set(group_rel) == set(res["group_grad_norms"]) == set(single["group_grad_norms"])
+                             and max(group_rel.values()) <= TOL_MESH_GROUP_NORM_REL
+                             and res["grad_norm_count_rel"] <= TOL_GRAD_NORM_COUNT_REL
+                             and res["launches"] == expected
+                             and res.get("experts") == cfg.n_experts // kw.get("ep", 1) and res["params_on_card"]))
+    fault = results["tp2_fault"][0]
+    fault_rel = [_rel(g, w) for g, w in zip(fault["losses"], single["losses"])]
+    planted = dict(spec="tp2_fault", optimizer="adamw(1e-4) without the expert weights", losses=fault["losses"],
+                   loss_rel_to_single=fault_rel, routed_differently=flips["tp2_fault"],
+                   caught=max(fault_rel) > TOL_MESH_LOSS_REL)
+    from maggy_tpu_torch.parallel import ShardingSpec
+
+    n_ranks = sum(ShardingSpec(**s["kw"]).num_devices for s in specs)
+    ok = (len(rows) == n_ranks and all(r["ok"] for r in rows) and planted["caught"]
+          and phase_s <= DIST_MOE_MESH_BUDGET_S)
+    emit("dist.moe.mesh", ok=ok, ran=True, cards=cards, ranks=rows, planted_fault=planted, specs_not_run=not_run,
+         yardsticks=yardstick, microbatches=MOE_MESH_MICRO, steps=MOE_MESH_STEPS, spec_s=spec_s,
+         studies_s=studies["study_s"], study_leads=studies["leads"],
+         tol=dict(loss_rel=TOL_MESH_LOSS_REL, grad_norm_rel=TOL_MESH_GRAD_NORM_REL, aux_abs=TOL_PIPE_AUX_ABS,
+                  group_grad_norm_rel=TOL_MESH_GROUP_NORM_REL, grad_norm_count_rel=TOL_GRAD_NORM_COUNT_REL),
+         phase_s=phase_s, budget_s=DIST_MOE_MESH_BUDGET_S, card=card)
+    if not ok:
+        raise SystemExit("dist.moe.mesh failed: a rank's steps (loss; the warm-up's grad norm, aux loss, gradient "
+                         "groups, its trainer's count), its yardstick's steps, its experts or its launches "
+                         "disagree, the planted fault went unseen, or the studies ran past the budget")
     return launches
 
 
@@ -5122,7 +5465,9 @@ def main(argv=None) -> int:
     # across cards held to that one card's steps
     moe_launches = [phase_moe_model(torch, card)]
     train_launches, moe_single = phase_moe_train(torch, card, args.profile)
-    moe_launches += [train_launches, phase_dist_moe(torch, card, moe_single)]
+    studies = moe_studies(torch)  # dist.moe's and dist.moe.mesh's specs, one study a rank count
+    moe_launches += [train_launches, phase_dist_moe(torch, card, moe_single, studies),
+                     phase_dist_moe_mesh(torch, card, moe_single, studies)]
     rows.update(phase_ring_kernels(torch))
     phase_ring_model(torch, N_LAYERS, RING_S)
     ring_launches = phase_ring_train(torch, N_LAYERS, RING_S, TRAIN_STEPS, card, args.profile)

@@ -20,7 +20,8 @@ the port's per-stage state dicts (:func:`decoder_stage_params_from_flax`),
 and optax's AdamW moments ``mu``/``nu``, which mirror the parameter tree,
 onto ``torch.optim.AdamW``'s per-parameter state
 (:func:`adamw_state_from_optax`). The ``MoEDecoder``'s tree maps the same
-way (:func:`moe_params_from_flax`).
+way (:func:`moe_params_from_flax`; its pipelined state through
+:func:`decoder_stage_params_from_flax`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from maggy_tpu_torch.parallel.expert import is_moe
 
 
 def _arr(x) -> np.ndarray:
@@ -62,7 +65,7 @@ def decoder_params_from_flax(params_np: Dict[str, Any], cfg) -> Dict[str, torch.
     """``state_dict`` for ``maggy_tpu_torch.models.Decoder(cfg)`` from the
     JAX ``Decoder``'s params; ``cfg.scan_layers`` names the tree's layout.
     An ``MoEConfig`` reads the JAX ``MoEDecoder``'s (:func:`moe_params_from_flax`)."""
-    if hasattr(cfg, "n_experts"):
+    if is_moe(cfg):
         return moe_params_from_flax(params_np, cfg)
     tree = params_np.get("params", params_np)
     out = {"embedding": _arr(tree["embedding"])}
@@ -114,16 +117,20 @@ def unstack_flax_stages(stage_tree: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _stage_split(state_dict: Dict[str, Any], cfg, n_stages: int) -> List[Dict[str, Any]]:
+    from maggy_tpu_torch.models.moe import MoEDecoder
     from maggy_tpu_torch.models.transformer import Decoder
     from maggy_tpu_torch.train.pipeline_adapter import decoder_pipeline_parts
 
-    return decoder_pipeline_parts(Decoder(cfg, device="meta"), n_stages).restack(state_dict)
+    model = (MoEDecoder if is_moe(cfg) else Decoder)(cfg, device="meta")
+    return decoder_pipeline_parts(model, n_stages).restack(state_dict)
 
 
 def decoder_stage_params_from_flax(stage_tree: Dict[str, Any], cfg, n_stages: int) -> List[Dict[str, torch.Tensor]]:
     """One ``state_dict`` a stage (``DecoderStage``'s names, the
     Decoder's) from the JAX pipeline Trainer's stage-stacked params;
-    ``cfg.scan_layers`` must be True, as the JAX pipeline requires."""
+    ``cfg.scan_layers`` must be True, as the JAX pipeline requires. An
+    ``MoEConfig`` reads JAX's pipelined ``MoEDecoder``: every leaf with a
+    leading ``[n_stages]`` axis, the experts whole in each stage's layers."""
     return _stage_split(decoder_params_from_flax(unstack_flax_stages(stage_tree), cfg), cfg, n_stages)
 
 

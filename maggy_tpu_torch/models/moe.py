@@ -21,9 +21,10 @@ breaks them (a stable descending sort): the router's logits are taken in
 of its own: the JAX package computes the expert einsums outside any Pallas
 kernel, and they stay PyTorch's batched matmuls here.
 
-Under expert parallelism (:mod:`maggy_tpu_torch.parallel.expert`) a block
-holds only its rank's experts and its :attr:`MoEBlock.placement` says how
-it exchanges their tokens; unlike JAX's, the decoder never ties its
+Under expert and tensor parallelism (:mod:`maggy_tpu_torch.parallel.expert`)
+a block holds only its rank's experts (and under ``tensor`` their hidden
+columns), and its :attr:`MoEBlock.placement` says how it exchanges their
+tokens and sums their partial products; unlike JAX's, the decoder never ties its
 embeddings nor soft-caps its logits, so a config asking for either raises.
 """
 
@@ -160,10 +161,13 @@ class MoEBlock(nn.Module):
         expert_in = torch.einsum("ngec,ngd->necd", dispatch, grouped)
         # fold the groups into the expert batch: experts see [e, n*c, d]
         expert_in = expert_in.transpose(0, 1).reshape(e, n_groups * capacity, d)
-        expert_in = ep.take_experts(expert_in, place)
-        w_gate, w_up, w_down = (w.to(cfg.dtype) for w in (self.w_gate, self.w_up, self.w_down))
+        # this rank's experts, then (under ``tensor``) its hidden columns:
+        # the FFNs' partial products are summed over ``tensor`` before the
+        # experts are gathered, so ``expert_out`` is whole for the combine
+        expert_in = ep.tensor_in(ep.take_experts(expert_in, place), place)
+        w_gate, w_up, w_down = (ep.local_weight(w).to(cfg.dtype) for w in (self.w_gate, self.w_up, self.w_down))
         hidden = F.silu(torch.bmm(expert_in, w_gate)) * torch.bmm(expert_in, w_up)
-        expert_out = ep.gather_experts(torch.bmm(hidden, w_down), place)
+        expert_out = ep.gather_experts(ep.tensor_out(torch.bmm(hidden, w_down), place), place)
         expert_out = expert_out.reshape(e, n_groups, capacity, d).transpose(0, 1)
 
         y = torch.einsum("ngec,necd->ngd", combine, expert_out).reshape(-1, d)

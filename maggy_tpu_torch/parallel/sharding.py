@@ -12,7 +12,11 @@ rules map them to mesh axes, and :func:`shard_decoder` lays the model out:
   over the vocabulary. ``lm_head``'s logits are gathered over ``tensor``
   (fp32 logits whole on every rank, for the loss), as are the embedding's
   rows. The norm scales are DTensors replicated over ``tensor``, so every
-  parameter lies on one mesh.
+  parameter lies on one mesh. An MoE block's expert weights are DTensors
+  on the tensor mesh too, sharded over their ``mlp`` dim (``Shard(2)`` for
+  ``w_gate``/``w_up``, ``Shard(1)`` for ``w_down``), and its router a
+  replicated one; :func:`~maggy_tpu_torch.parallel.expert.expert_parallelize`
+  then keeps this rank's experts of each shard.
 * ``fsdp`` (and ``data``): FSDP2 ``fully_shard`` per ``DecoderLayer``,
   then on the root, over the (``data``, ``fsdp``) sub-mesh: HSDP,
   replicated over ``data`` and sharded over ``fsdp``, when ``dp > 1``;
@@ -30,9 +34,11 @@ rules map them to mesh axes, and :func:`shard_decoder` lays the model out:
   called: the trainer reduces the gradients over ``data`` itself.
 * Under pp (a ``stage`` axis above 1) each rank holds one pipeline stage
   and :func:`shard_decoder` is not called either: the stage gets
-  :func:`tensor_parallelize` over ``tensor`` alone, its parameters are
-  replicated over ``data`` and ``fsdp`` as JAX's are, and the pipeline sums
-  their gradients over both.
+  :func:`tensor_parallelize` over ``tensor`` alone (an MoE stage then
+  :func:`~maggy_tpu_torch.parallel.expert.expert_parallelize` over
+  ``expert`` and ``tensor``), its parameters are replicated over ``data``
+  and ``fsdp`` as JAX's are, and the pipeline sums their gradients over
+  both.
 
 Two deliberate divergences from the JAX layout (ROADMAP "Deliberate
 divergences"): ``wk``/``wv`` are column-parallel too (``kv`` maps to
@@ -132,8 +138,9 @@ def logical_axes(name: str) -> Tuple[str, ...]:
 
 def placed_mesh_axes(param) -> frozenset:
     """The mesh axes (of extent > 1) a parameter is actually sharded over:
-    those of its DTensor placements that shard a dim, and ``expert`` for an
-    MoE expert weight that holds its rank's experts alone
+    those of its DTensor placements that shard a dim (``tensor`` on an MoE
+    expert weight's ``mlp`` dim too), and ``expert`` for an MoE expert
+    weight that holds its rank's experts alone
     (:mod:`~maggy_tpu_torch.parallel.expert`)."""
     from maggy_tpu_torch.parallel.expert import expert_extent
 
@@ -187,9 +194,10 @@ def _local_output(mod, output, mesh):
 def shard_decoder(model, mesh):
     """Lay ``model`` (a materialised ``Decoder`` or ``MoEDecoder``, the
     same weights on every rank) out on ``mesh`` in place and return it:
-    tensor parallelism over ``tensor``, the MoE blocks' experts over
-    ``expert`` (:func:`~maggy_tpu_torch.parallel.expert.expert_parallelize`),
-    then FSDP2 over (``data``, ``fsdp``). Every rank must call it.
+    tensor parallelism over ``tensor`` (an MoE block's expert weights
+    over their hidden width), the MoE blocks' experts over ``expert``
+    (:func:`~maggy_tpu_torch.parallel.expert.expert_parallelize`), then
+    FSDP2 over (``data``, ``fsdp``). Every rank must call it.
     Afterwards each parameter is a DTensor (or, on a mesh with no axis
     above 1 that touches it, the plain tensor)."""
     from maggy_tpu_torch.parallel import expert
@@ -232,14 +240,16 @@ def tensor_parallelize(model, tp_mesh):
     """Tensor parallelism over the one-dimensional ``tp_mesh``, in place:
     the projections by :data:`PORT_RULES` (``lm_head``'s logits gathered),
     the norm scales replicated DTensors, the embedding table (where the
-    module has one) sharded over the vocabulary. ``model`` is a ``Decoder``
-    or a pipeline stage of one: any module whose ``Dense`` and ``RMSNorm``
-    submodules carry the Decoder's parameter names."""
+    module has one) sharded over the vocabulary, and an MoE block's router
+    replicated and its expert weights sharded over ``mlp``. ``model`` is a
+    ``Decoder`` (an ``MoEDecoder``) or a pipeline stage of one: any module
+    whose submodules carry the Decoder's parameter names."""
     from torch import nn
     from torch.distributed.tensor import Replicate, Shard, distribute_module, distribute_tensor
     from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
 
     from maggy_tpu_torch.models.transformer import Dense, RMSNorm
+    from maggy_tpu_torch.parallel.expert import EXPERT_WEIGHTS, moe_blocks
 
     plan = {}
     for name, mod in model.named_modules():
@@ -259,6 +269,16 @@ def tensor_parallelize(model, tp_mesh):
             # then lies on one mesh, as an optimizer's foreach kernels
             # need (one list cannot mix plain tensors and DTensors)
             distribute_module(mod, tp_mesh, input_fn=_replicated_inputs, output_fn=_local_output)
+    for name, block in moe_blocks(model):
+        # an MoE block's router replicated as the norms are (every tensor
+        # rank routes the same bits), its expert weights sharded over their
+        # hidden width (``mlp``), every expert still on this rank
+        distribute_module(block.router, tp_mesh, input_fn=_replicated_inputs, output_fn=_local_output)
+        for w in EXPERT_WEIGHTS:
+            full = getattr(block, w)
+            dim = logical_to_mesh_axes(logical_axes(f"{name}.{w}")).index(AXIS_TENSOR)
+            setattr(block, w, nn.Parameter(distribute_tensor(full.detach(), tp_mesh, [Shard(dim)]),
+                                           requires_grad=full.requires_grad))
     table = getattr(model, "embedding", None)
     if table is not None and logical_to_mesh_axes(logical_axes("embedding"))[0] == AXIS_TENSOR:
         model.embedding = nn.Parameter(distribute_tensor(table.detach(), tp_mesh, [Shard(0)]),

@@ -10,10 +10,11 @@ attention over the ``seq`` axis, ``pp`` as the pipeline schedules of
 :mod:`maggy_tpu_torch.parallel.pipeline` over the ``stage`` axis, and
 ``zero_stage``/``bucket_mb`` as the bucketed and ZeRO-1 steps of
 :mod:`maggy_tpu_torch.parallel.overlap`, and ``ep`` as the MoE experts over
-the ``expert`` axis (:mod:`maggy_tpu_torch.parallel.expert`). What it does
-not run yet raises ``NotImplementedError`` at construction, naming its
-ROADMAP queue 1 item: ``ep`` with ``tp``, ``sp`` or ``pp`` (item 8b). As in
-JAX, ``pp`` with ``sp`` is refused by the trainer.
+the ``expert`` axis (:mod:`maggy_tpu_torch.parallel.expert`), alone or
+with ``dp``, ``fsdp``, ``tp`` and ``pp``. What it does not run yet raises
+``NotImplementedError`` at construction, naming its ROADMAP queue 1 item:
+``ep`` with ``sp`` (item 8c). As in JAX, ``pp`` with ``sp`` is refused by
+the trainer.
 """
 
 from __future__ import annotations
@@ -65,8 +66,9 @@ class ShardingSpec:
     ``bucket_mb`` the gradient-reduction bucket in MiB (None: unbucketed);
     ``ep``    expert parallelism over ``expert``: each rank holds
               ``n_experts / ep`` of an MoE model's experts, the batch is
-              not split over it; with ``dp`` and ``fsdp`` (with ``tp``,
-              ``sp`` or ``pp`` it raises, naming item 8b).
+              not split over it; with ``dp``, ``fsdp``, ``tp`` (the
+              expert FFNs' hidden width over ``tensor``) and ``pp`` (with
+              ``sp`` it raises, naming item 8c).
     """
 
     dp: int
@@ -91,10 +93,8 @@ class ShardingSpec:
             raise ValueError(f"ShardingSpec.zero_stage must be 0 or 1, got {zero_stage!r}")
         if bucket_mb is not None and not float(bucket_mb) > 0:
             raise ValueError(f"ShardingSpec.bucket_mb must be positive (or None), got {bucket_mb!r}")
-        if ep > 1:
-            with_ep = [f"{n}={values[n]}" for n in ("tp", "sp", "pp") if values[n] > 1]
-            if with_ep:
-                _refuse(f"expert parallelism with {', '.join(with_ep)} (ep={ep})", "8b")
+        if ep > 1 and sp > 1:
+            _refuse(f"expert parallelism with sequence parallelism (ep={ep}, sp={sp})", "8c")
         for name, v in values.items():
             object.__setattr__(self, name, v)
 

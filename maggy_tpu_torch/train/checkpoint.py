@@ -60,6 +60,11 @@ experts each) the full state dicts hold a rank's own experts only: a save
 gathers each expert weight and its moments over ``expert`` too, so rank 0
 writes them whole, ``[experts, ...]``, in the one-device format; a restore
 broadcasts rank 0's whole tensors and each rank keeps its experts' share.
+Under ``tensor`` the expert weights' hidden columns are gathered with the
+other DTensors' shards first; a pipeline stage's experts are gathered and
+cut by :func:`~maggy_tpu_torch.train.pipeline_adapter.stage_state` and
+``load_stage_state``, so a pp x ep or pp x tp checkpoint restores on one
+device and onto any other layout of the same model.
 
 A save commits atomically, as orbax's does: the step is written into a
 temporary directory whose name is not a step number, its file and the

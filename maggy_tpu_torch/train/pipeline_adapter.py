@@ -11,7 +11,13 @@ stages' (``restack``, ``unstack``, :func:`convert_pipeline_state`).
 Layout. Each stage rank holds a :class:`DecoderStage`: its layers, the
 embedding on stage 0 only, and the final norm and ``lm_head`` on the last
 stage only; every parameter keeps the Decoder's name
-(``layers.5.attn.wq.weight``). JAX gives every leaf a leading
+(``layers.5.attn.wq.weight``). An :class:`~maggy_tpu_torch.models.moe.MoEDecoder`
+is staged the same way: the stage holds ``MoELayer``s under the
+MoEDecoder's own names (``layers.1.moe.w_gate``), its stage function
+returns ``(y, aux)``, the router terms of the stage's layers
+(``stage_has_aux``, as JAX's), and the Trainer places its experts over
+``expert`` and their hidden width over ``tensor``
+(:func:`~maggy_tpu_torch.parallel.expert.expert_parallelize`). JAX gives every leaf a leading
 ``[n_stages]`` axis instead, so each device keeps a copy of the embedding
 and the head that only one stage reads (ROADMAP, deliberate divergences).
 ``restack`` and ``unstack`` map a Decoder ``state_dict`` (or anything keyed
@@ -32,7 +38,9 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import torch
 from torch import nn
 
+from maggy_tpu_torch.models.moe import MoELayer
 from maggy_tpu_torch.models.transformer import Decoder, DecoderLayer, Dense, RMSNorm, _lookup
+from maggy_tpu_torch.parallel.expert import is_moe
 
 # gradient-overlap seam: pp-composed configurations get no per-stage
 # bucketing (JAX's neither). A zero_stage/bucket_mb request on a pp mesh (or
@@ -55,12 +63,36 @@ def warn_overlap_unbucketed(reason: str) -> None:
     )
 
 
+def _draws(cfg):
+    """``(name, shape, std)`` of every draw ``Decoder.reset_parameters``
+    (an ``MoEConfig``'s: ``MoEDecoder.reset_parameters``) makes, in its
+    order: the embedding, each layer's projections (and router), ``lm_head``,
+    then each MoE layer's experts."""
+    d, hd = cfg.d_model, cfg.head_dim
+    moe = is_moe(cfg)
+    out = [("embedding", (cfg.vocab_size, d), 1.0)]
+    for i in range(cfg.n_layers):
+        shapes = [("attn.wq", (cfg.n_heads * hd, d)), ("attn.wk", (cfg.n_kv_heads * hd, d)),
+                  ("attn.wv", (cfg.n_kv_heads * hd, d)), ("attn.wo", (d, cfg.n_heads * hd))]
+        shapes += ([("moe.router", (cfg.n_experts, d))] if moe else
+                   [("mlp.w_gate", (cfg.d_ff, d)), ("mlp.w_up", (cfg.d_ff, d)), ("mlp.w_down", (d, cfg.d_ff))])
+        out += [(f"layers.{i}.{name}.weight", shape, 0.02) for name, shape in shapes]
+    out.append(("lm_head.weight", (cfg.vocab_size, d), 0.02))
+    if moe:
+        e, f = cfg.n_experts, cfg.d_ff
+        for i in range(cfg.n_layers):
+            out += [(f"layers.{i}.moe.{w}", shape, 0.02)
+                    for w, shape in (("w_gate", (e, d, f)), ("w_up", (e, d, f)), ("w_down", (e, f, d)))]
+    return out
+
+
 class DecoderStage(nn.Module):
-    """Stage ``stage`` of ``n_stages`` of a ``Decoder(cfg)``: layers
-    ``[stage * L/S, (stage + 1) * L/S)`` (a ``ModuleDict`` keyed by their
-    index in the Decoder), the embedding on stage 0 and the final norm and
-    ``lm_head`` on the last. Its weights are empty until
-    :meth:`reset_parameters` or ``load_state_dict``."""
+    """Stage ``stage`` of ``n_stages`` of a ``Decoder(cfg)`` (of an
+    ``MoEDecoder(cfg)`` for an ``MoEConfig``): layers ``[stage * L/S,
+    (stage + 1) * L/S)`` (a ``ModuleDict`` keyed by their index in the
+    Decoder), the embedding on stage 0 and the final norm and ``lm_head``
+    on the last. Its weights are empty until :meth:`reset_parameters` or
+    ``load_state_dict``."""
 
     def __init__(self, cfg, stage: int, n_stages: int, device):
         super().__init__()
@@ -70,7 +102,8 @@ class DecoderStage(nn.Module):
         first = stage * per
         self.embedding = (nn.Parameter(torch.empty((cfg.vocab_size, cfg.d_model), dtype=cfg.param_dtype,
                                                    device=device)) if stage == 0 else None)
-        self.layers = nn.ModuleDict({str(i): DecoderLayer(cfg, device) for i in range(first, first + per)})
+        layer_cls = MoELayer if is_moe(cfg) else DecoderLayer
+        self.layers = nn.ModuleDict({str(i): layer_cls(cfg, device) for i in range(first, first + per)})
         last = stage == n_stages - 1
         self.final_norm = RMSNorm(cfg, device) if last else None
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg, device) if last else None
@@ -79,9 +112,9 @@ class DecoderStage(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """This stage's part of ``Decoder.reset_parameters(generator)``: the
         generator runs through every draw of the whole Decoder, in its
-        order (the embedding, each layer's projections, ``lm_head``), and
-        this stage keeps its own, so a stage holds exactly the weights the
-        Decoder would from the same generator."""
+        order (:func:`_draws`), and this stage keeps its own, so a stage
+        holds exactly the weights the Decoder would from the same
+        generator."""
         cfg = self.cfg
         params = dict(self.named_parameters())
         scratch = None
@@ -97,15 +130,8 @@ class DecoderStage(nn.Module):
                 mine = scratch[:n].view(shape)
             mine.normal_(0.0, std, generator=generator)
 
-        d, hd = cfg.d_model, cfg.head_dim
-        draw("embedding", (cfg.vocab_size, d), 1.0)
-        for i in range(cfg.n_layers):
-            for name, shape in (("attn.wq", (cfg.n_heads * hd, d)), ("attn.wk", (cfg.n_kv_heads * hd, d)),
-                                ("attn.wv", (cfg.n_kv_heads * hd, d)), ("attn.wo", (d, cfg.n_heads * hd)),
-                                ("mlp.w_gate", (cfg.d_ff, d)), ("mlp.w_up", (cfg.d_ff, d)),
-                                ("mlp.w_down", (d, cfg.d_ff))):
-                draw(f"layers.{i}.{name}.weight", shape, 0.02)
-        draw("lm_head.weight", (cfg.vocab_size, d), 0.02)
+        for name, shape, std in _draws(cfg):
+            draw(name, shape, std)
         for mod in self.modules():
             if isinstance(mod, RMSNorm):
                 mod.scale.fill_(1.0)
@@ -166,14 +192,10 @@ def decoder_pipeline_parts(model: Any, n_stages: int, tp: int = 1, mesh=None, ep
     is accepted for JAX's signature: the stage attention is the port's own
     ``auto_attention`` on whatever heads the stage holds (the flash kernels
     on CUDA, ``n_heads / tp`` of them under tensor parallelism), so it needs
-    no mesh."""
-    from maggy_tpu_torch.parallel.expert import is_moe
-
-    if is_moe(model):
-        raise NotImplementedError(
-            "pipeline parallelism (pp>1) with the MoEDecoder (its router terms through the stages, pp x ep) "
-            "is ROADMAP queue 1 item 8b, not ported yet"
-        )
+    no mesh. An ``MoEDecoder``'s parts have ``stage_has_aux``: the stage
+    function returns ``(y, aux)``, the router terms of the stage's layers
+    on that microbatch."""
+    moe = is_moe(model)
     if not isinstance(model, Decoder):
         raise ValueError(
             "Pipeline parallelism (pp>1) currently supports the Decoder family only, got "
@@ -200,11 +222,16 @@ def decoder_pipeline_parts(model: Any, n_stages: int, tp: int = 1, mesh=None, ep
             f"n_heads={cfg.n_heads} / n_kv_heads={cfg.n_kv_heads} not divisible by tp={tp}: the stage-local "
             "attention shards BOTH head axes over the tensor mesh axis (GQA kv heads included)"
         )
-    if ep > 1:
+    if ep > 1 and not moe:
         raise ValueError(
             f"ep={ep} under pp>1 needs an MoE model (got {type(model).__name__}): a dense model has no expert "
-            "dims, so the expert axis would silently replicate every stage param; pipelines with MoE models "
-            "and expert parallelism are ROADMAP queue 1 item 8b, not ported yet"
+            "dims, so the expert axis would silently replicate every stage param and waste ep-1 of every ep "
+            "devices"
+        )
+    if ep > 1 and cfg.n_experts % ep:
+        raise ValueError(
+            f"n_experts={cfg.n_experts} not divisible by ep={ep}: the expert axis would silently replicate "
+            "instead of sharding the expert FFNs (pp x ep)"
         )
     from maggy_tpu_torch.parallel.sharding import check_tensor_parallel
 
@@ -222,7 +249,13 @@ def decoder_pipeline_parts(model: Any, n_stages: int, tp: int = 1, mesh=None, ep
 
     def stage_fn(stage: DecoderStage, x, raw):
         positions, segment_ids = _side_inputs(x, raw)
-        return stage(x, positions, segment_ids)
+        y = stage(x, positions, segment_ids)
+        if not moe:
+            return y
+        from maggy_tpu_torch.train.trainer import collect_aux_losses
+
+        # this stage's router terms on this microbatch (the one collecting rule)
+        return y, collect_aux_losses(stage, y.device)
 
     def head_fn(stage: DecoderStage, x):
         return stage.head(x)
@@ -246,6 +279,7 @@ def decoder_pipeline_parts(model: Any, n_stages: int, tp: int = 1, mesh=None, ep
         restack=restack,
         unstack=unstack,
         make_stage=make_stage,
+        stage_has_aux=moe,
         stage_names=stage_names,
     )
 
@@ -291,17 +325,26 @@ def stage_state(state) -> Dict[str, Any]:
     """This rank's stage of a pipeline ``TrainState``, whole and on the
     host: ``{"step", "params": {name: tensor}, "optimizer": {name: {moment:
     tensor}}, "hyper": the optimizer's hyperparameters}``, every name the
-    Decoder's. Under ``tensor`` the shards are gathered, so every rank of
-    the stage must call it."""
+    Decoder's. Under ``tensor`` the shards are gathered, and an MoE stage's
+    experts (and their moments) over ``expert``, so every rank of the stage
+    must call it."""
     from torch.distributed.checkpoint.state_dict import (
         StateDictOptions,
         get_model_state_dict,
         get_optimizer_state_dict,
     )
 
+    from maggy_tpu_torch.parallel.expert import expert_params, gather_expert_tensor
+
     full = StateDictOptions(full_state_dict=True)
     params = get_model_state_dict(state.model, options=full)
     optim = get_optimizer_state_dict(state.model, state.optimizer, options=full)
+    for name, (_, place) in expert_params(state.model).items():
+        params[name] = gather_expert_tensor(params[name], place)
+        moments = optim["state"].get(name, {})
+        for m, v in moments.items():
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                moments[m] = gather_expert_tensor(v, place)
 
     def host(v):  # a copy: on the CPU the state dict holds the live tensors themselves
         return v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor) else v
@@ -316,13 +359,16 @@ def stage_state(state) -> Dict[str, Any]:
 
 def load_stage_state(state, part: Dict[str, Any]) -> None:
     """Copy a :func:`stage_state` of this rank's stage (whole tensors) into
-    the live stage, in place: parameters (sharded here under ``tensor``),
-    AdamW state, hyperparameters and the step."""
+    the live stage, in place: parameters (sharded here under ``tensor``; an
+    MoE stage's experts cut to this rank's over ``expert``), AdamW state,
+    hyperparameters and the step."""
     from torch.distributed.checkpoint.state_dict import (
         StateDictOptions,
         set_model_state_dict,
         set_optimizer_state_dict,
     )
+
+    from maggy_tpu_torch.parallel.expert import expert_params
 
     full = StateDictOptions(full_state_dict=True)
     names = [n for n, _ in state.model.named_parameters()]
@@ -331,8 +377,17 @@ def load_stage_state(state, part: Dict[str, Any]) -> None:
             f"stage {state.pipeline.stage}'s parameters differ from the state's: missing "
             f"{sorted(set(names) - set(part['params']))}, unexpected {sorted(set(part['params']) - set(names))}"
         )
-    set_model_state_dict(state.model, dict(part["params"]), options=full)
+    params = dict(part["params"])
     optim = {"state": {n: dict(part["optimizer"][n]) for n in names if n in part["optimizer"]},
              "param_groups": [{**part["hyper"], "params": names}]}
+    for name, (_, place) in expert_params(state.model).items():  # this rank's experts of the whole
+        n = params[name].shape[0] // place.ep
+        mine = slice(place.rank * n, (place.rank + 1) * n)
+        params[name] = params[name][mine]
+        moments = optim["state"].get(name, {})
+        for m, v in moments.items():
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                moments[m] = v[mine]
+    set_model_state_dict(state.model, params, options=full)
     set_optimizer_state_dict(state.model, state.optimizer, optim, options=full)
     state.step = int(part["step"])

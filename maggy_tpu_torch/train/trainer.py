@@ -15,7 +15,11 @@ and splits each sequence over ``seq`` (ring attention,
 :mod:`maggy_tpu_torch.parallel.overlap`; a ``stage`` axis above 1 trains
 the Decoder in pipeline stages on the 1F1B schedule
 (:mod:`maggy_tpu_torch.parallel.pipeline`,
-:mod:`maggy_tpu_torch.train.pipeline_adapter`). A sliced context
+:mod:`maggy_tpu_torch.train.pipeline_adapter`). The MoEDecoder trains
+under all of these but the ``seq`` axis and a ring: its experts over
+``expert``, their hidden width over ``tensor``
+(:mod:`maggy_tpu_torch.parallel.expert`), its router terms in the
+objective and in every pipeline stage. A sliced context
 (:meth:`TrainContext.create_sliced`) adds the outer ``slice`` axis, and
 ``Trainer(membership=)`` checks the elastic membership at each step
 boundary of ``fit``. The autopilot (ROADMAP queue 1 item 9) belongs to a
@@ -377,7 +381,10 @@ class Trainer:
     :func:`~maggy_tpu_torch.parallel.overlap.plan_buckets` buckets), laid
     out over ``tensor`` by the DTensor rules of :mod:`~maggy_tpu_torch.parallel.sharding`, and a masked or packed
     loss is rescaled to the dense global token-weighted mean. ``pp`` with
-    ``sp`` is refused, as JAX's is.
+    ``sp`` is refused, as JAX's is. An MoEDecoder's stages add their router
+    terms at each backward tick (``aux_loss``: the sum over the stages of
+    each microbatch's term, averaged as the loss is), its experts split over
+    ``expert`` and ``tensor`` inside each stage.
 
     On a sliced mesh (:meth:`TrainContext.create_sliced`) the batch is
     split over ``slice`` as well and the gradients are summed across the
@@ -440,17 +447,17 @@ class Trainer:
 
     def _check_moe(self) -> None:
         """Refuse what an MoE model cannot train on yet: a sequence split
-        (a ring, or ``seq``), ``tensor`` or pipeline stages (ROADMAP queue 1
-        item 8b), and an ``expert`` extent that does not divide the
-        experts."""
+        (a ring, or ``seq``; ROADMAP queue 1 item 8c), and an ``expert``
+        extent that does not divide the experts. ``tensor`` and pipeline
+        stages train it, alone and with ``expert``."""
         shape = self._mesh_shape
-        unported = [f"{a}={shape[a]}" for a in (AXIS_SEQ, AXIS_TENSOR, AXIS_STAGE) if shape.get(a, 1) > 1]
+        unported = [f"{a}={shape[a]}" for a in (AXIS_SEQ,) if shape.get(a, 1) > 1]
         if self.ring is not None:
             unported.append(f"a {type(self.ring).__name__}")
         if unported:
             raise NotImplementedError(
-                f"the MoEDecoder under {', '.join(unported)} (MoE with sequence, tensor or pipeline "
-                "parallelism) is ROADMAP queue 1 item 8b, not ported yet"
+                f"the MoEDecoder under {', '.join(unported)} (MoE with sequence parallelism: the ring, Ulysses, "
+                "the seq axis) is ROADMAP queue 1 item 8c, not ported yet"
             )
         ep = shape.get(AXIS_EXPERT, 1)
         if self.model.cfg.n_experts % ep:
@@ -574,12 +581,18 @@ class Trainer:
         parts = self._pipeline_parts()
         raw, tgts, loss_pp, activation = self._pp_batch_parts(self._to_device(batch), parts, self._n_micro())
         state.optimizer.zero_grad(set_to_none=True)
-        loss, _ = pipeline_grads_1f1b(parts.stage_fn, loss_pp, state.model, raw, tgts, mesh=self.mesh,
-                                      first_fn=parts.first_fn, stage_takes_raw=True, activation=activation)
-        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-        gnorm = _global_norm(grads, holders=dist.get_world_size() // self.pp)
+        out = pipeline_grads_1f1b(parts.stage_fn, loss_pp, state.model, raw, tgts, mesh=self.mesh,
+                                  first_fn=parts.first_fn, stage_takes_raw=True, stage_has_aux=parts.stage_has_aux,
+                                  activation=activation)
+        loss = out[0]
+        # an MoE stage's router terms: each microbatch's, summed over the
+        # stages and averaged as the loss is (JAX's metric semantics)
+        aux = out[2] if parts.stage_has_aux else torch.zeros((), dtype=torch.float32, device=loss.device)
+        params = [p for p in state.model.parameters() if p.grad is not None]
+        # an expert weight's shard is held once on each of its expert ranks
+        gnorm = _global_norm([p.grad for p in params], holders=dist.get_world_size() // self.pp,
+                             splits=[expert_extent(p) for p in params])
         state.optimizer.step()
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         metrics = {"loss": loss, "aux_loss": aux, "total_loss": loss + aux, "grad_norm": gnorm,
                    "step": torch.tensor(state.step)}
         state.step += 1
@@ -601,6 +614,11 @@ class Trainer:
             module.reset_parameters(self._generator(seed_or_generator))
         if self._mesh_shape.get(AXIS_TENSOR, 1) > 1:
             shd.tensor_parallelize(module, self.mesh[AXIS_TENSOR])
+        if parts.stage_has_aux:  # MoE layers: experts over `expert`, hidden width over `tensor`
+            from maggy_tpu_torch.parallel import expert
+
+            expert.expert_parallelize(module, self.mesh)
+            expert.tag_expert_params(module)
         return TrainState(module, self.optimizer(module.parameters()), 0,
                           pipeline=PipelineLayout(parts, stage, self.mesh))
 
@@ -988,27 +1006,31 @@ class Trainer:
 
     @torch.no_grad()
     def dense_model(self, state: TrainState) -> nn.Module:
-        """Under pp: the whole Decoder on this rank's device, its weights
-        gathered from every stage (each stage's broadcast over the stage
-        group, tensor shards gathered first). Every rank must call it."""
+        """Under pp: the whole Decoder (an MoEDecoder for one) on this
+        rank's device, its weights gathered from every stage (each stage's
+        broadcast over the stage group, tensor shards and experts gathered
+        first). Every rank must call it."""
         import torch.distributed as dist
+
+        from maggy_tpu_torch.parallel.expert import gather_expert_tensor
 
         pipe = state.pipeline
         group, parts = stage_group(self.mesh), pipe.parts
         mine = dict(state.model.named_parameters())
+        experts = expert_params(state.model)
         full = {}
         for s in range(parts.n_stages):
             for name, p in parts.make_stage(s, "meta").named_parameters():
                 if s == pipe.stage:
                     t = mine[name]
+                    if name in experts:  # every expert, gathered over `expert` (and `tensor`)
+                        t = gather_expert_tensor(t, experts[name][1])
                     t = (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().contiguous()
                 else:
                     t = torch.empty(p.shape, dtype=p.dtype, device=self.device)
                 dist.broadcast(t, dist.get_global_rank(group, s), group=group)
                 full[name] = t
-        from maggy_tpu_torch.models.transformer import Decoder
-
-        model = Decoder(self.model.cfg, device="meta")
+        model = type(self.model)(self.model.cfg, device="meta")
         model.to_empty(device=self.device)
         model.load_state_dict(full)
         return model
@@ -1074,7 +1096,8 @@ class Trainer:
         parts = self._pipeline_parts()
         raw, tgts, loss_pp, activation = self._pp_batch_parts(batch, parts, self._n_micro())
         loss, _ = pipeline_forward_loss(parts.stage_fn, loss_pp, state.model, raw, tgts, mesh=self.mesh,
-                                        first_fn=parts.first_fn, stage_takes_raw=True, activation=activation)
+                                        first_fn=parts.first_fn, stage_takes_raw=True,
+                                        stage_has_aux=parts.stage_has_aux, activation=activation)
         return loss
 
     def checkpoint_meta(self) -> Dict[str, Any]:

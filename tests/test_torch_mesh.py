@@ -247,7 +247,7 @@ def _trainer_membership():
     return trainer.membership, monitor
 
 
-# what raised naming items 7a2, 7c, 7e, 7f, 7f2 and 8 until they were
+# what raised naming items 7a2, 7c, 7e, 7f, 7f2, 8 and 8b until they were
 # ported: each builds now, as the JAX package's does
 @pytest.mark.parametrize("make", [
     lambda: (ShardingSpec(sp=2, fsdp=2).axis_sizes(), JShardingSpec(sp=2, fsdp=2).axis_sizes()),
@@ -276,19 +276,19 @@ def _trainer_membership():
     lambda: (ShardingSpec(ep=2).axis_sizes(), JShardingSpec(ep=2).axis_sizes()),
     lambda: (ShardingSpec.preset("ep", 4).axis_sizes(), JShardingSpec.preset("ep", 4).axis_sizes()),
     lambda: (DistributedConfig(sharding="ep", device="cpu").resolve_sharding(4), ShardingSpec(ep=2, fsdp=2)),
+    lambda: (ShardingSpec(ep=2, tp=2).axis_sizes(), JShardingSpec(ep=2, tp=2).axis_sizes()),
+    lambda: (ShardingSpec(ep=2, pp=2).axis_sizes(), JShardingSpec(ep=2, pp=2).axis_sizes()),
 ], ids=["sp2_fsdp2", "sp2_tp2", "zero_stage", "bucket_mb", "zero_lvl_1", "config_zero_stage",
         "config_bucket_mb", "trainer_zero_stage", "pp2", "pp_preset", "trainer_n_microbatches",
         "max_restarts", "evaluator", "driver_addr", "data_plane_local", "elastic", "num_slices",
-        "min_slices", "trainer_membership", "ep2", "ep_preset", "config_ep"])
+        "min_slices", "trainer_membership", "ep2", "ep_preset", "config_ep", "ep2_tp2", "ep2_pp2"])
 def test_ported_parts_build(make):
     got, want = make()
     assert got == want
 
 
 @pytest.mark.parametrize("make, item", [
-    (lambda: ShardingSpec(ep=2, tp=2), "8b"),
-    (lambda: ShardingSpec(ep=2, sp=2), "8b"),
-    (lambda: ShardingSpec(ep=2, pp=2), "8b"),
+    (lambda: ShardingSpec(ep=2, sp=2), "8c"),
 ], ids=lambda v: v if isinstance(v, str) else "")
 def test_unported_parts_raise_naming_their_items(make, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP queue 1 item {item}\b"):

@@ -39,7 +39,7 @@ from maggy_tpu_torch.models.generate import generate, generate_cached, init_cach
 from maggy_tpu_torch.models.moe import capacity_of, top_k_lowest_first
 from maggy_tpu_torch.parallel import ShardingSpec, make_mesh
 from maggy_tpu_torch.parallel.mesh import mesh_shape
-from maggy_tpu_torch.parallel.sharding import placed_mesh_axes, shard_decoder
+from maggy_tpu_torch.parallel.sharding import logical_axes, placed_mesh_axes, shard_decoder
 from maggy_tpu_torch.train import Trainer, adamw
 from maggy_tpu_torch.train.trainer import collect_aux_losses
 
@@ -298,7 +298,8 @@ def test_remat_keeps_the_step(jax_trajectory):
 
 # ------------------------------------------------------------------ placement
 
-LAYOUTS = {"ep2": dict(ep=2), "ep2_fsdp2": dict(ep=2, fsdp=2), "ep2_dp2": dict(ep=2, dp=2)}
+LAYOUTS = {"ep2": dict(ep=2), "ep2_fsdp2": dict(ep=2, fsdp=2), "ep2_dp2": dict(ep=2, dp=2), "tp2": dict(tp=2),
+           "tp2_fsdp2": dict(tp=2, fsdp=2), "ep2_tp2": dict(ep=2, tp=2)}
 
 
 @pytest.fixture()
@@ -337,10 +338,11 @@ def _jax_param_axes(jspec):
 @pytest.mark.parametrize("key", list(LAYOUTS))
 def test_placement_table_matches_jax(fake_world, key):
     """Every MoE parameter's mesh axes against JAX's, allowing the
-    recorded divergence: FSDP2 shards every parameter's dim 0 over fsdp
-    (norm scales included, which JAX replicates). The experts lie over
-    ``expert`` as JAX's rule puts them, the router and attention nowhere
-    but fsdp."""
+    recorded divergences: FSDP2 shards every parameter's dim 0 over fsdp
+    (norm scales included, which JAX replicates), and ``wk``/``wv`` lie
+    over ``tensor`` (the port's ``kv`` rule). The experts lie over
+    ``expert`` and their ``mlp`` dim over ``tensor`` as JAX's rules put
+    them, the router nowhere but fsdp; every parameter lies on one mesh."""
     spec = ShardingSpec(**LAYOUTS[key])
     fake_world(spec.num_devices)
     mesh = make_mesh(spec, "cpu")
@@ -352,28 +354,41 @@ def test_placement_table_matches_jax(fake_world, key):
     got = {name: set(placed_mesh_axes(p)) for name, p in model.named_parameters()}
     assert set(got) == set(want)
     assert len({p.device_mesh for p in model.parameters()}) == 1  # one list for the foreach kernels
+    shape = mesh_shape(mesh)
     for name in got:
         allowed = set(want[name])
-        if mesh_shape(mesh)["fsdp"] > 1:
+        if shape["fsdp"] > 1:
             allowed.add("fsdp")
+        if shape["tensor"] > 1 and logical_axes(name)[0] == "kv":
+            allowed.add("tensor")
         assert got[name] == allowed, (name, got[name], want[name])
         assert {a for dim in layout[name] if dim for a in dim} == got[name], name
-    assert model.layers[0].moe.w_gate.shape == (2, 64, 96)  # two experts of four a rank
+    # a rank's experts (of four), its hidden columns as a DTensor's local shard
+    w_gate = model.layers[0].moe.w_gate
+    assert w_gate.shape == (4 // shape["expert"], 64, 96)
+    assert getattr(w_gate, "to_local", lambda: w_gate)().shape[2] == 96 // shape["tensor"]
 
 
 def test_refusals(fake_world):
-    """What an MoE model cannot train on yet raises, naming item 8b; an
-    ``expert`` extent that does not divide the experts raises as JAX's
+    """What an MoE model cannot train on yet raises, naming item 8c (MoE
+    under ``seq``: the ring, Ulysses); ``tensor`` and pipeline stages build;
+    an ``expert`` extent that does not divide the experts raises as JAX's
     pipeline does; a rank whose rows do not hold whole routing groups
     raises."""
+    from maggy_tpu_torch.parallel import LocalRing
+
     cfg = MoEConfig.tiny_moe(dtype=torch.float32)
-    for kw in (dict(ep=2, tp=2), dict(ep=2, sp=2), dict(ep=2, pp=2)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 8b\b"):
-            ShardingSpec(**kw)
-    for kw in (dict(tp=2), dict(fsdp=2, sp=2), dict(pp=2)):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 8c\b"):
+        ShardingSpec(ep=2, sp=2)
+    for kw in (dict(fsdp=2, sp=2), dict(sp=2, tp=2)):
         fake_world(ShardingSpec(**kw).num_devices)
-        with pytest.raises(NotImplementedError, match=r"item 8b\b"):
+        with pytest.raises(NotImplementedError, match=r"item 8c\b"):
             Trainer(MoEDecoder(cfg, device="meta"), adamw(1e-3), device="cpu", mesh=make_mesh(ShardingSpec(**kw), "cpu"))
+    with pytest.raises(NotImplementedError, match=r"item 8c\b"):
+        Trainer(MoEDecoder(cfg, device="meta"), adamw(1e-3), device="cpu", ring=LocalRing(2))
+    for kw in (dict(tp=2), dict(pp=2), dict(ep=2, tp=2), dict(pp=2, ep=2), dict(pp=2, tp=2, ep=2)):
+        fake_world(ShardingSpec(**kw).num_devices)
+        Trainer(MoEDecoder(cfg, device="meta"), adamw(1e-3), device="cpu", mesh=make_mesh(ShardingSpec(**kw), "cpu"))
     fake_world(3)
     with pytest.raises(ValueError, match="not divisible by ep=3"):
         Trainer(MoEDecoder(cfg, device="meta"), adamw(1e-3), device="cpu", mesh=make_mesh(ShardingSpec(ep=3), "cpu"))

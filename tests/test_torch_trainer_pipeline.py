@@ -592,13 +592,14 @@ def test_pp_raises_loudly_for_unsupported():
             if make_jax is not None:
                 with pytest.raises(ValueError, match=msg):
                     make_jax().make_state(jax.random.key(0), sample)
-        # ep under pp on a dense model: JAX's refusal, naming the port's item 8b
-        with pytest.raises(ValueError, match=r"needs an MoE model.*ROADMAP queue 1 item 8b\b"):
+        # ep under pp on a dense model: JAX's refusal; with an MoE model the
+        # spec builds (tests/test_torch_moe_pipeline.py trains it)
+        with pytest.raises(ValueError, match="needs an MoE model") as refused:
             decoder_pipeline_parts(Decoder(DecoderConfig.tiny(), device="meta"), 2, ep=2)
+        assert "ROADMAP" not in str(refused.value)
         with pytest.raises(ValueError, match="needs an MoE model"):
             jparts(JDecoder(JConfig.tiny()), 2, ep=2)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 8b\b"):
-            ShardingSpec(pp=2, ep=2)
+        assert ShardingSpec(pp=2, ep=2).axis_sizes() == JShardingSpec(pp=2, ep=2).axis_sizes()
         # each microbatch's rows must split over data x fsdp: a clear error
         tr = port(dict(pp=2, dp=4), n_microbatches=4)
         state = tr.make_state(0, batch)  # 8 rows -> 2 a rank < 4 microbatches
